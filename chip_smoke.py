@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's VGL clip once on one CUDA card, with its kernels.
+"""Drive the PyTorch port's VGL clip and its VGL / VL training once on one
+CUDA card, with its kernels.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,11 @@ Phases (any failure raises and exits nonzero):
                  (the comparisons below are against full-precision plain math)
   2. build       nvcc builds the Hopper kernels from csrc/ into build/
   3. kernels     each kernel against its plain PyTorch version on the card, at
-                 the slice's shapes, in bf16 and fp32, with its time beside the
-                 plain version's
+                 the slices' shapes, in bf16 and fp32 (K4: fp32 steps, uint8
+                 codes), with its time beside the plain version's, the time of
+                 the PyTorch library call for the same function where there is
+                 one, and the least time the card could take (bound); then
+                 the backward of K1-K3 against autograd of the plain versions
   4. denoiser    one full-width ControlNet + UNet forward (CFG batch 2, 14
                  frames of 32x48 latents, bf16) with the kernels and through
                  the plain versions; relative L2 error held to a bound
@@ -17,10 +21,18 @@ Phases (any failure raises and exits nonzero):
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
                  counters show every kernel ran on that path
+  6. VGL train   training.train_loop.main on config/train_image2video_gesturenet.yaml
+                 as written (14x256x384, batch 1, remat, bf16 frozen towers
+                 and UNet, fp32 GestureNet, 8-bit AdamW, clip 1.0), 3 steps
+                 of synthetic data into a temporary output directory; the
+                 last step runs under torch.profiler (device time by kernel)
+  7. VL train    the same on config/train_image2video.yaml (the 1.525 B-param
+                 UNet trains in fp32), 2 steps
 
-Prints, before the last line, one JSON line with each kernel's launches,
-error and times, and the card's name and power limit from nvidia-smi; the
-last line is {"ok": true, "device": {...}}.  A longer report goes to
+Prints, before the last line, one JSON line with each kernel's launches
+(summed over the phases 5-7, each counted from zero), error, times and bound,
+and the card's name and power limit from nvidia-smi; the last line is
+{"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
@@ -29,8 +41,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +67,11 @@ F, H, W = 14, 256, 384  # frames, pixels
 STEPS = (25, 25)  # denoise steps of request 1 and 2
 DECODE_CHUNK = 8
 
+# K4 (8-bit Adam): step error over max |step| below 1e-5; codes off by at
+# most 1 on under 0.1% of entries (a log2 at a codebook midpoint may round
+# either way); scales within 1e-6 relative.
+K4_STEP_BOUND, K4_CODE_SHARE, K4_SCALE_BOUND = 1e-5, 1e-3, 1e-6
+
 KERNEL_INFO = {
     "flash_attention": ("this_and_that_vdm_tpu_torch/csrc/flash_attention.cu",
                         "this_and_that_vdm_tpu/ops/flash_attention.py:58"),
@@ -60,7 +79,19 @@ KERNEL_INFO = {
                   "this_and_that_vdm_tpu/ops/groupnorm_pallas.py:43"),
     "ln_matmul": ("this_and_that_vdm_tpu_torch/csrc/ln_matmul.cu",
                   "this_and_that_vdm_tpu/ops/ln_matmul.py:74"),
+    "adam8bit": ("this_and_that_vdm_tpu_torch/csrc/adam8bit.cu",
+                 "this_and_that_vdm_tpu/ops/adam8bit_pallas.py:53"),
 }
+
+INFERENCE_KERNELS = ("flash_attention", "groupnorm", "ln_matmul")  # K4 runs in training only
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
+# by type (bf16 on the tensor cores, fp32 on the CUDA cores)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# (mode, config, steps, profile the last step)
+TRAIN_CONFIGS = (("vgl", "config/train_image2video_gesturenet.yaml", 3, True),
+                 ("vl", "config/train_image2video.yaml", 2, False))
 
 
 def log(*args):
@@ -126,9 +157,19 @@ def _randn(shape, dtype, seed, scale=1.0, shift=0.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dtype)
 
 
+def bound(flops, nbytes, dtype):
+    """(least milliseconds the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 def kernel_cases():
-    """(kernel, label, kernel call, plain call, error scale or None) at the
-    slice's shapes; the error is relative to the scale, else to max |plain|."""
+    """Dicts (kernel, label, kern, plain, scale, work, library) at the slices'
+    shapes; the error is relative to ``scale``, else to max |plain|; ``work``
+    = (operations, bytes, dtype) of one call; ``library``: one PyTorch call
+    (or a pair, noted) computing the same function, timed as a yardstick."""
+    import torch.nn.functional as tF
+
     from this_and_that_vdm_tpu_torch.ops import flash_attention as fa
     from this_and_that_vdm_tpu_torch.ops import groupnorm as gn
     from this_and_that_vdm_tpu_torch.ops import ln_matmul as lm
@@ -136,11 +177,19 @@ def kernel_cases():
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "fp32"
+        isz = torch.finfo(dtype).bits // 8
         for shape in ((28, 1536, 5, 64), (28, 384, 10, 64), (4, 1000, 5, 64)):
             q, k, v = (_randn(shape, dtype, s) for s in range(3))
-            cases.append(("flash_attention", f"{list(shape)} {dn}",
-                          lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, 0.125),
-                          lambda q=q, k=k, v=v: fa._plain(q, k, v, 0.125), None))
+            b, sq, h, d = shape
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D] views
+            cases.append(dict(
+                kernel="flash_attention", label=f"{list(shape)} {dn}",
+                kern=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, 0.125),
+                plain=lambda q=q, k=k, v=v: fa._plain(q, k, v, 0.125), scale=None,
+                work=(4.0 * b * h * sq * sq * d, 4.0 * q.numel() * isz, dtype),
+                library=lambda q=qt, k=kt, v=vt: tF.scaled_dot_product_attention(
+                    q, k, v, scale=0.125),
+                library_note="F.scaled_dot_product_attention"))
         for shape, eps, silu, const in (((28, 1536, 320), 1e-6, True, False),
                                         ((2, 14 * 1536, 320), 1e-5, True, False),
                                         ((8, 256 * 384, 128), 1e-6, False, False),
@@ -149,49 +198,195 @@ def kernel_cases():
             x = (torch.full(shape, 3.0, device="cuda", dtype=dtype) if const
                  else _randn(shape, dtype, 4, 2.0, 0.5))
             w, b = _randn((c,), torch.float32, 5, 0.1, 1.0), _randn((c,), torch.float32, 6, 0.1)
+            wl, bl, xcf = w.to(dtype), b.to(dtype), x.permute(0, 2, 1)  # channels-first view
+
+            def library(x=xcf, w=wl, b=bl, e=eps, s=silu):
+                y = tF.group_norm(x, 32, w, b, e)
+                return tF.silu(y) if s else y
+
             label = f"{list(shape)} eps={eps} silu={silu}{' constant' if const else ''} {dn}"
-            cases.append(("groupnorm", label,
-                          lambda x=x, w=w, b=b, e=eps, s=silu: gn.group_norm(x, w, b, 32, e, s),
-                          lambda x=x, w=w, b=b, e=eps, s=silu: gn._plain(x, w, b, 32, e, s),
-                          3.0 * w.abs().max().item() / eps ** 0.5 if const else None))
+            cases.append(dict(
+                kernel="groupnorm", label=label,
+                kern=lambda x=x, w=w, b=b, e=eps, s=silu: gn.group_norm(x, w, b, 32, e, s),
+                plain=lambda x=x, w=w, b=b, e=eps, s=silu: gn._plain(x, w, b, 32, e, s),
+                scale=3.0 * w.abs().max().item() / eps ** 0.5 if const else None,
+                work=((8.0 if silu else 5.0) * x.numel(), 2.0 * x.numel() * isz,
+                      torch.float32),
+                library=library,
+                library_note="F.group_norm" + (" + F.silu (two calls)" if silu else "")))
         for r, c, n, bias in ((43008, 320, 960, False), (43008, 320, 2560, True),
                               (2688, 1280, 10240, True)):
             x = _randn((r, c), dtype, 7)
             s, b = _randn((c,), torch.float32, 8, 0.1, 1.0), _randn((c,), torch.float32, 9, 0.1)
             w = _randn((n, c), dtype, 10, c ** -0.5)
             wb = _randn((n,), torch.float32, 11, 0.1) if bias else None
-            cases.append(("ln_matmul", f"R={r} C={c} N={n} bias={bias} {dn}",
-                          lambda x=x, s=s, b=b, w=w, wb=wb: lm.ln_matmul(x, s, b, w, wb),
-                          lambda x=x, s=s, b=b, w=w, wb=wb: lm._reference(x, s, b, w, wb,
-                                                                          1e-5), None))
+            sl, bl = s.to(dtype), b.to(dtype)
+            wbl = None if wb is None else wb.to(dtype)
+            cases.append(dict(
+                kernel="ln_matmul", label=f"R={r} C={c} N={n} bias={bias} {dn}",
+                kern=lambda x=x, s=s, b=b, w=w, wb=wb: lm.ln_matmul(x, s, b, w, wb),
+                plain=lambda x=x, s=s, b=b, w=w, wb=wb: lm._reference(x, s, b, w, wb, 1e-5),
+                scale=None,
+                work=(2.0 * r * c * n, (r * c + n * c + r * n) * isz + 8.0 * c + 4.0 * n,
+                      dtype),
+                library=lambda x=x, s=sl, b=bl, w=w, wb=wbl: tF.linear(
+                    tF.layer_norm(x, (x.shape[-1],), s, b, 1e-5), w, wb),
+                library_note="F.layer_norm -> F.linear (two calls)"))
+    return cases
+
+
+def k4_inputs(nb, seed, valid=None):
+    """Gradient blocks and a moment state on the card; entries past ``valid``
+    are the zero-padded tail of a ragged leaf (zero gradient, zero codes)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grad = torch.randn((nb, 256), generator=g, device="cuda") * 1e-3
+    mq = torch.randint(0, 255, (nb, 256), generator=g, device="cuda").to(torch.uint8)
+    nq = torch.randint(0, 256, (nb, 256), generator=g, device="cuda").to(torch.uint8)
+    ms = torch.rand((nb,), generator=g, device="cuda") * 1e-3
+    ns = torch.rand((nb,), generator=g, device="cuda") * 1e-6
+    if valid is not None:
+        grad.view(-1)[valid:] = 0
+        mq.view(-1)[valid:] = 127
+        nq.view(-1)[valid:] = 0
+    return grad, mq, ms, nq, ns
+
+
+def k4_compare(got, want):
+    """(max abs step error, step error / max |step|); raises past the K4 bounds."""
+    (step, mq, ms, nq, ns), (wstep, wmq, wms, wnq, wns) = got, want
+    abs_err = (step - wstep).abs().max().item()
+    rel = abs_err / wstep.abs().max().item()
+    off = max(((a.int() - b.int()).abs() > 0).float().mean().item() for a, b in
+              ((mq, wmq), (nq, wnq)))
+    far = max((a.int() - b.int()).abs().max().item() for a, b in ((mq, wmq), (nq, wnq)))
+    scale_rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                    for a, b in ((ms, wms), (ns, wns)))
+    if not (rel < K4_STEP_BOUND and far <= 1 and off < K4_CODE_SHARE
+            and scale_rel <= K4_SCALE_BOUND):
+        raise RuntimeError(f"adam8bit: step rel {rel:.3e}, codes off {off:.2e} (max {far}), "
+                           f"scales rel {scale_rel:.3e}")
+    return abs_err, rel, off
+
+
+def adam8bit_cases():
+    """K4 at the 13.1 M-parameter GEGLU leaf (NB = 51,200), a 90-block leaf and
+    a ragged 513-element leaf, each at t = 1 and t = 1000."""
+    from this_and_that_vdm_tpu_torch.ops import adam8bit as k4
+
+    cases = []
+    for nb, valid in ((51200, None), (90, None), (3, 513)):
+        ins = k4_inputs(nb, 12, valid)
+        n = nb * 256
+        for t in (1, 1000):
+            bc = k4.bias_corrections(t, 0.9, 0.999)
+            cases.append(dict(
+                kernel="adam8bit", label=f"NB={nb}{f' ({valid} valid)' if valid else ''} t={t}",
+                kern=lambda ins=ins, bc=bc: k4.adam8bit_update(*ins, bc),
+                plain=lambda ins=ins, bc=bc: k4._plain(*ins, bc, 0.9, 0.999, 1e-8),
+                work=(50.0 * n, 12.0 * n + 16.0 * nb, torch.float32), library=None,
+                library_note=None, valid=valid))
     return cases
 
 
 def phase_kernels():
     results = {name: {"max_abs_err": 0.0, "cases": []} for name in KERNEL_INFO}
-    for name, label, kern, plain, scale in kernel_cases():
-        got = kern()
-        want = plain()
+    for case in kernel_cases() + adam8bit_cases():
+        name, label = case["kernel"], case["label"]
+        got, want = case["kern"](), case["plain"]()
         sync()
-        if not torch.isfinite(got.float()).all():
-            raise RuntimeError(f"{name} {label}: non-finite output")
-        abs_err, rel = rel_err(got, want, scale)
-        bound = BOUND[got.dtype]
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        log(f"[kernel] {name:15s} {label:45s} max_abs={abs_err:.3e} rel={rel:.3e} "
-            f"(bound {bound:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        if not rel < bound:
-            raise RuntimeError(f"{name} {label}: relative error {rel:.3e} >= {bound:.0e}")
+        if name == "adam8bit":
+            abs_err, rel, off = k4_compare(got, want)
+            if case["valid"] is not None and not (
+                    (got[1].view(-1)[case["valid"]:] == 127).all()
+                    and (got[3].view(-1)[case["valid"]:] == 0).all()):
+                raise RuntimeError(f"adam8bit {label}: padded tail lost its zero codes")
+            extra = f"codes off by 1: {off:.2e}"
+        else:
+            if not torch.isfinite(got.float()).all():
+                raise RuntimeError(f"{name} {label}: non-finite output")
+            abs_err, rel = rel_err(got, want, case["scale"])
+            limit = BOUND[got.dtype]
+            if not rel < limit:
+                raise RuntimeError(f"{name} {label}: relative error {rel:.3e} >= {limit:.0e}")
+            extra = f"(bound {limit:.0e})"
+        del got, want
+        ms, plain_ms = cuda_ms(case["kern"]), cuda_ms(case["plain"])
+        lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
+        bound_ms, bound_by = bound(*case["work"])
+        log(f"[kernel] {name:15s} {label:45s} max_abs={abs_err:.3e} rel={rel:.3e} {extra}  "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by})")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["cases"].append(dict(case=label, max_abs_err=abs_err, rel_err=rel, ms=ms,
-                               plain_ms=plain_ms))
-        if "ms" not in r:  # first case = the main-path site in bf16
-            r["ms"], r["plain_ms"] = ms, plain_ms
-        del got, want
+                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library=case["library_note"]))
+        if "ms" not in r:  # first case = the main-path site (bf16 where it applies)
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library=case["library_note"])
     sync()
     torch.cuda.empty_cache()
     return results
+
+
+def backward_cases():
+    """(kernel, label, kernel call, plain call, inputs) at one training-path
+    shape each (batch 1 clip of 14 frames), bf16 and fp32."""
+    from this_and_that_vdm_tpu_torch.ops import flash_attention as fa
+    from this_and_that_vdm_tpu_torch.ops import groupnorm as gn
+    from this_and_that_vdm_tpu_torch.ops import ln_matmul as lm
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp32"
+        f32 = torch.float32
+        cases += [
+            ("flash_attention", f"[14,1536,5,64] {dn}",
+             lambda q, k, v: fa.flash_attention(q, k, v, 0.125),
+             lambda q, k, v: fa._plain(q, k, v, 0.125),
+             [_randn((14, 1536, 5, 64), dtype, s) for s in range(3)]),
+            ("groupnorm", f"[14,1536,320] silu {dn}",
+             lambda x, w, b: gn.group_norm(x, w, b, 32, 1e-6, True),
+             lambda x, w, b: gn._plain(x, w, b, 32, 1e-6, True),
+             [_randn((14, 1536, 320), dtype, 4, 2.0, 0.5), _randn((320,), f32, 5, 0.1, 1.0),
+              _randn((320,), f32, 6, 0.1)]),
+            ("ln_matmul", f"R=21504 C=320 N=960 {dn}",
+             lambda x, s, b, w: lm.ln_matmul(x, s, b, w),
+             lambda x, s, b, w: lm._reference(x, s, b, w, None, 1e-5),
+             [_randn((21504, 320), dtype, 7), _randn((320,), f32, 8, 0.1, 1.0),
+              _randn((320,), f32, 9, 0.1), _randn((960, 320), dtype, 10, 320 ** -0.5)]),
+        ]
+    return cases
+
+
+def phase_backward():
+    """Gradients through each wrapper (its autograd Function) against
+    autograd of the plain version, with the forward bounds."""
+    from this_and_that_vdm_tpu_torch import ops
+
+    worst = {}
+    for name, label, kern, plain, inputs in backward_cases():
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        ys = [t.detach().requires_grad_(True) for t in inputs]
+        before = ops.launch_counts()[name]
+        out = kern(*xs)
+        if out.grad_fn is None or ops.launch_counts()[name] != before + 1:
+            raise RuntimeError(f"{name} backward: the wrapper recorded no autograd node")
+        r = _randn(out.shape, torch.float32, 11)
+        got = torch.autograd.grad((out.float() * r).sum(), xs)
+        want = torch.autograd.grad((plain(*ys).float() * r).sum(), ys)
+        sync()
+        rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
+        limit = BOUND[inputs[0].dtype]
+        log(f"[backward] {name:15s} {label:28s} grad rel errors "
+            + " ".join(f"{x:.2e}" for x in rels) + f" (bound {limit:.0e})")
+        if not all(np.isfinite(rels)) or max(rels) >= limit:
+            raise RuntimeError(f"{name} {label} backward: relative errors {rels}")
+        worst[f"{name} {label}"] = max(rels)
+        del xs, ys, out, got, want
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ----------------------------------------------------------------- phase 4/5
@@ -283,7 +478,7 @@ def phase_denoiser(pipe):
         f"kernels {t_kern:.3f} s, plain {t_plain:.3f} s")
     if not torch.isfinite(got).all() or not rel_l2 < DENOISER_REL_L2_BOUND:
         raise RuntimeError(f"denoiser check failed: rel L2 {rel_l2}")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in INFERENCE_KERNELS) == 0:
         raise RuntimeError(f"denoiser forward skipped a kernel: {counts}")
     return rel_l2
 
@@ -343,9 +538,143 @@ def phase_slice(pipe, smi):
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice] launches over both requests {counts}; peak memory "
         f"{peak / 2**30:.2f} GiB  [{smi}]")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in INFERENCE_KERNELS) == 0:
         raise RuntimeError(f"the main path skipped a kernel: {counts}")
     return counts, stages, peak
+
+
+def _snapshot(tensors):
+    """Host copies, so that the checks add nothing to the device's peak."""
+    return {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+
+
+def _same(snap, tensors):
+    return all(torch.equal(snap[k], tensors[k].detach().cpu()) for k in snap)
+
+
+# kernel-name pieces of each kernel of the port, by dtype where it matters
+KERNEL_NAMES = {"flash_attention fp32": ("flash_f32",), "flash_attention bf16": ("flash_bf16",),
+                "groupnorm": ("gn_stats", "gn_apply"), "ln_matmul fp32": ("ln_matmul_f32",),
+                "ln_matmul bf16": ("ln_stats", "ln_matmul_bf16"),
+                "adam8bit": ("adam8bit_kernel",)}
+
+
+def device_time(prof):
+    """Device milliseconds of one profiled step: in total, by kernel of the
+    port, and the ten largest kernels by name."""
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    ours = {k: sum(t for n, t in by_name.items() if any(p in n for p in pieces))
+            for k, pieces in KERNEL_NAMES.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(total_ms=sum(by_name.values()), kernels_ms=ours,
+                top_ms=[(n[:90], t) for n, t in top])
+
+
+def phase_train(mode, config, steps, profile, smi):
+    """``train_loop.main`` on the shipped YAML (a temporary copy whose
+    output_dir is a temporary directory, removed afterwards), ``steps``
+    steps of synthetic data; the checks of phases 6 / 7.  With ``profile``
+    the last step runs under ``torch.profiler`` and is left out of the
+    seconds per step."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.training import train_loop
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{mode}_")
+    try:
+        with open(config) as f:
+            lines = [f"output_dir: {tmp}/out" if line.startswith("output_dir:") else line
+                     for line in f.read().splitlines()]
+        cfg_path = os.path.join(tmp, os.path.basename(config))
+        with open(cfg_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        rec = dict(metrics=[], step_s=[], resume=None, checks={})
+        snap = {}
+
+        def on_step(step, state, m, models):
+            # a step's seconds run from the end of one call to the start of
+            # the next: the checks below are not part of any step
+            sync()
+            if rec["resume"] is not None:
+                rec["step_s"].append(time.perf_counter() - rec["resume"])
+            try:
+                checks(step, state, m, models)
+            finally:
+                sync()
+                rec["resume"] = time.perf_counter()
+
+        def checks(step, state, m, models):
+            if "prof" in rec:  # the last step ran under the profiler
+                rec["prof"].__exit__(None, None, None)
+                rec["profile"] = device_time(rec.pop("prof"))
+            adam = state.opt_state[1][0] if mode == "vgl" else state.opt_state[0]
+            if step == 0:
+                snap["trained"] = _snapshot(state.params)
+                if mode == "vgl":
+                    snap["unet"] = _snapshot(dict(models["unet"].named_parameters()))
+                ops.reset_launch_counts()  # the main path's launches only
+                torch.cuda.reset_peak_memory_stats()
+                return
+            rec["metrics"].append(dict(step=step, loss=float(m["loss"]),
+                                       grad_norm=float(m["grad_norm"])))
+            if step == 1:  # schedule(0) = 0 with warmup: nothing moves
+                rec["checks"]["unchanged_after_step_1"] = _same(snap["trained"], state.params)
+            if step == steps:
+                rec["checks"]["changed_after_last_step"] = not _same(snap["trained"],
+                                                                     state.params)
+                rec["checks"]["codes_changed"] = any(
+                    bool((q.q != 127).any()) for q in adam.mu.values())
+                rec["state_params"] = sum(state.params[k].numel() for k in adam.mu)
+                rec["checks"]["state_covers_the_tree"] = set(adam.mu) == set(state.params)
+                if mode == "vgl":
+                    rec["checks"]["unet_bitwise_unchanged"] = _same(
+                        snap["unet"], dict(models["unet"].named_parameters()))
+                snap.clear()
+            if profile and step == steps - 1:  # profile the last step (not timed)
+                act = torch.profiler.ProfilerActivity
+                rec["prof"] = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+                rec["prof"].__enter__()
+
+        t0 = time.perf_counter()
+        train_loop.main(["--config", cfg_path, "--mode", mode, "--synthetic", "4",
+                         "--max-steps", str(steps)], on_step=on_step)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = rec["step_s"]
+    timed = step_s[1:-1] if profile else step_s[1:]
+    tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+    for m in rec["metrics"]:
+        log(f"[train {mode}] step {m['step']}: loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f}")
+    prof = rec.get("profile")
+    if prof is not None:
+        log(f"[train {mode}] profiled step {steps}: device {prof['total_ms']:.1f} ms of "
+            f"{step_s[-1] * 1e3:.1f} ms wall; the port's kernels (ms) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["kernels_ms"].items())
+            + "; largest: " + "; ".join(f"{n} {t:.2f}" for n, t in prof["top_ms"]))
+    log(f"[train {mode}] {steps} steps, seconds per step {[round(t, 4) for t in step_s]} "
+        f"(timed steps >= 2: {[round(t, 4) for t in timed]}); peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes); TF32 {tf32}; 8-bit state over "
+        f"{rec['state_params'] / 1e9:.4f} B parameters; launches {counts}; checks "
+        f"{rec['checks']}; wall {wall:.1f} s  [{smi}]")
+    finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+                 for m in rec["metrics"])
+    if len(rec["metrics"]) != steps or not finite:
+        raise RuntimeError(f"train {mode}: metrics {rec['metrics']}")
+    if not all(rec["checks"].values()):
+        raise RuntimeError(f"train {mode}: checks failed {rec['checks']}")
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"train {mode}: the training path skipped a kernel: {counts}")
+    return dict(mode=mode, config=config, steps=steps, metrics=rec["metrics"],
+                step_s=step_s, timed_step_s=timed, profile=prof, peak_bytes=peak, tf32=tf32,
+                launches=counts,
+                checks=rec["checks"], state_params=rec["state_params"], wall_s=wall)
 
 
 def main():
@@ -353,21 +682,29 @@ def main():
     smi = phase_device()
     phase_build()
     kern = phase_kernels()
+    backward = phase_backward()
     pipe = build_pipeline()
     rel_l2 = phase_denoiser(pipe)
     counts, stages, peak = phase_slice(pipe, smi)
+    del pipe
+    torch.cuda.empty_cache()
+    train = [phase_train(*args, smi) for args in TRAIN_CONFIGS]
+    paths = dict(slice=counts, **{f"train_{t['mode']}": t["launches"] for t in train})
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = kern[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=counts[name], max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"]))
+                            launches=sum(c.get(name, 0) for c in paths.values()),
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"), "w") as f:
-        json.dump(dict(card=smi, kernels=kernels,
+        json.dump(dict(card=smi, kernels=kernels, launches_by_path=paths,
                        kernel_cases={k: v["cases"] for k, v in kern.items()},
-                       denoiser_rel_l2=rel_l2, requests=stages, peak_bytes=peak,
+                       backward_rel_err=backward, denoiser_rel_l2=rel_l2, requests=stages,
+                       peak_bytes=peak, train=train,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

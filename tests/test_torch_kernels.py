@@ -1,17 +1,21 @@
-"""The three Hopper kernels against their plain versions, on the card.
+"""The four Hopper kernels against their plain versions, on the card.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  Run on a machine with an H100:
-``python -m pytest tests/test_torch_kernels.py -q -m cuda``.
+``python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest``.
 Bounds: fp32 1e-4 relative (max abs error over max abs reference); bf16
-2e-2 relative (bf16 rounding of the normalised / probability tensor).
+2e-2 relative (bf16 rounding of the normalised / probability tensor).  K4:
+step error over max |step| below 1e-5; codes off by at most 1 on under 0.1%
+of entries (a log2 at a codebook midpoint may round either way); scales
+within 1e-6 relative.  Backward of K1-K3: gradients through the wrapper
+against autograd of the plain version, with the forward bounds.
 """
 
 import pytest
 import torch
 
 from this_and_that_vdm_tpu_torch import ops
-from this_and_that_vdm_tpu_torch.ops import flash_attention, groupnorm, ln_matmul
+from this_and_that_vdm_tpu_torch.ops import adam8bit, flash_attention, groupnorm, ln_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +112,96 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         x = torch.zeros((16, 64), device=dev, dtype=torch.float16)
         ln_matmul.ln_matmul(x, torch.ones(64), torch.zeros(64), torch.zeros((8, 64)))
+
+
+def _k4_inputs(dev, nb, seed, valid=None):
+    """Gradient blocks and a moment state; entries past ``valid`` are the
+    zero-padded tail of a ragged leaf (zero gradient, zero codes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grad = torch.randn((nb, 256), generator=g, device=dev) * 1e-3
+    mq = torch.randint(0, 255, (nb, 256), generator=g, device=dev).to(torch.uint8)
+    nq = torch.randint(0, 256, (nb, 256), generator=g, device=dev).to(torch.uint8)
+    ms = torch.rand((nb,), generator=g, device=dev) * 1e-3
+    ns = torch.rand((nb,), generator=g, device=dev) * 1e-6
+    if valid is not None:
+        grad.view(-1)[valid:] = 0
+        mq.view(-1)[valid:] = 127
+        nq.view(-1)[valid:] = 0
+    return grad, mq, ms, nq, ns
+
+
+def check_k4(got, want):
+    """The K4 bounds; returns (step relative error, share of codes off by 1)."""
+    step, *state = got
+    wstep, *wstate = want
+    rel = ((step - wstep).abs().max() / wstep.abs().max()).item()
+    assert rel < 1e-5, rel
+    off = 0.0
+    for a, b in ((state[0], wstate[0]), (state[2], wstate[2])):
+        d = (a.int() - b.int()).abs()
+        assert d.max().item() <= 1
+        off = max(off, d.float().mean().item())
+    assert off < 1e-3, off
+    for a, b in ((state[1], wstate[1]), (state[3], wstate[3])):
+        assert ((a - b).abs() <= 1e-6 * b.abs()).all()
+    return rel, off
+
+
+@pytest.mark.parametrize("t", [1, 1000])
+@pytest.mark.parametrize("nb,valid", [(51200, None), (90, None), (3, 513)])
+def test_adam8bit_kernel(dev, nb, valid, t):
+    ins = _k4_inputs(dev, nb, 5, valid)
+    bc = adam8bit.bias_corrections(t, 0.9, 0.999)
+    ops.reset_launch_counts()
+    got = adam8bit.adam8bit_update(*ins, bc)
+    want = adam8bit._plain(*ins, bc, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert adam8bit.launches == 1
+    check_k4(got, want)
+    if valid is not None:  # the padded tail keeps the zero codes
+        assert (got[1].view(-1)[valid:] == 127).all() and (got[3].view(-1)[valid:] == 0).all()
+
+
+def test_adam8bit_wrapper_raises(dev):
+    g = torch.zeros((4, 128), device=dev)
+    q = torch.zeros((4, 128), dtype=torch.uint8, device=dev)
+    s = torch.zeros((4,), device=dev)
+    with pytest.raises(ValueError):
+        adam8bit.adam8bit_update(g, q, s, q, s, (0.1, 0.001))  # not [NB, 256]
+
+
+def _backward_cases(dev, dtype):
+    t = lambda shape, seed, scale=1.0: (_randn(shape, dtype, dev, seed) * scale)  # noqa: E731
+    f32 = lambda shape, seed, scale=1.0, shift=0.0: (  # noqa: E731
+        _randn(shape, torch.float32, dev, seed) * scale + shift)
+    return [
+        ("flash_attention", lambda q, k, v: flash_attention.flash_attention(q, k, v, 0.125),
+         lambda q, k, v: flash_attention._plain(q, k, v, 0.125),
+         [t((2, 1536, 5, 64), s) for s in range(3)]),
+        ("groupnorm", lambda x, w, b: groupnorm.group_norm(x, w, b, 32, 1e-6, True),
+         lambda x, w, b: groupnorm._plain(x, w, b, 32, 1e-6, True),
+         [t((4, 1536, 320), 3), f32((320,), 4, 0.1, 1.0), f32((320,), 5, 0.1)]),
+        ("ln_matmul", lambda x, s, b, w, wb: ln_matmul.ln_matmul(x, s, b, w, wb),
+         lambda x, s, b, w, wb: ln_matmul._reference(x, s, b, w, wb, 1e-5),
+         [t((3072, 320), 6), f32((320,), 7, 0.1, 1.0), f32((320,), 8, 0.1),
+          t((960, 320), 9, 320 ** -0.5), f32((960,), 10, 0.1)]),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(3), ids=["flash_attention", "groupnorm", "ln_matmul"])
+def test_kernel_backward_matches_plain_autograd(dev, dtype, case):
+    name, kern, plain, inputs = _backward_cases(dev, dtype)[case]
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    ys = [x.detach().requires_grad_(True) for x in inputs]
+    ops.reset_launch_counts()
+    out = kern(*xs)
+    assert out.grad_fn is not None and ops.launch_counts()[name] == 1
+    r = _randn(out.shape, out.dtype, dev, 11)
+    got = torch.autograd.grad((out.float() * r.float()).sum(), xs)
+    want = torch.autograd.grad((plain(*ys).float() * r.float()).sum(), ys)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _rel(a, b) < BOUND[dtype]
+    with torch.no_grad():  # inference saves nothing and records no graph
+        assert kern(*xs).grad_fn is None

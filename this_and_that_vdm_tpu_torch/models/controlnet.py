@@ -19,7 +19,7 @@ import torch.nn as nn
 
 from .layers import TimestepEmbedding
 from .resnet import Conv2d
-from .unet import build_down_blocks, embed_time, run_down_blocks
+from .unet import build_down_blocks, call_block, embed_time, run_down_blocks
 from .unet_blocks import UNetMidBlockSpatioTemporal
 
 
@@ -39,15 +39,30 @@ class ControlNetConfig:
         "CrossAttnDownBlockSpatioTemporal",
         "DownBlockSpatioTemporal",
     )
+    remat: bool = False  # per-block activation checkpointing (training)
 
     @staticmethod
-    def tiny():
+    def tiny(remat: bool = False):
         return ControlNetConfig(
             block_out_channels=(32, 64, 64, 64),
             num_attention_heads=(2, 2, 4, 4),
             cross_attention_dim=48,
             addition_time_embed_dim=8,
             projection_class_embeddings_input_dim=24,
+            remat=remat,
+        )
+
+    @staticmethod
+    def nano(remat: bool = False):
+        """2-block companion of ``UNetConfig.nano()``."""
+        return ControlNetConfig(
+            down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+            block_out_channels=(32, 32),
+            num_attention_heads=(2, 2),
+            cross_attention_dim=48,
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=24,
+            remat=remat,
         )
 
 
@@ -87,8 +102,9 @@ class ControlNetModel(nn.Module):
         x = self.conv_in_concat(x.reshape(b * f, *x.shape[2:])).reshape(
             b, f, *x.shape[2:4], -1)
         x, down_res = run_down_blocks(self.down_blocks, x, temb, context, indicator,
-                                      context_clips)
-        x = self.mid_block(x, temb, context, indicator, context_clips)
+                                      context_clips, self.config.remat)
+        x = call_block(self.config.remat, self.mid_block, x, temb, context, indicator,
+                       context_clips)
 
         ctrl = []
         for conv, r in zip(self.controlnet_down_blocks, down_res):

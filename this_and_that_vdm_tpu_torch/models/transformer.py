@@ -118,7 +118,9 @@ class TemporalBasicTransformerBlock(nn.Module):
     def forward(self, x, num_frames: int, context=None, clips: int = 1):
         bf, s, c = x.shape
         b = bf // num_frames
+        # contiguous: at b == 1 the fold is a strided view, which K3 does not take
         h = x.reshape(b, num_frames, s, c).transpose(1, 2).reshape(b * s, num_frames, c)
+        h = h.contiguous()
         h = self.ff_in(h, ln=self.norm_in) + h  # is_res: dim == time_mix_inner_dim
         h = h + self.attn1(h, ln=self.norm1)
         if hasattr(self, "attn2"):

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import GroupNorm, TimestepEmbedding, sinusoidal_embedding
 from .resnet import Conv2d
@@ -48,9 +49,10 @@ class UNetConfig:
     cross_attention_dim: int = 1024
     transformer_layers_per_block: int = 1
     num_attention_heads: Tuple[int, ...] = (5, 10, 10, 20)
+    remat: bool = False  # per-block activation checkpointing (training)
 
     @staticmethod
-    def tiny():
+    def tiny(remat: bool = False):
         """Same topology, few channels (the JAX ``UNetConfig.tiny()``)."""
         return UNetConfig(
             block_out_channels=(32, 64, 64, 64),
@@ -58,7 +60,33 @@ class UNetConfig:
             cross_attention_dim=48,
             addition_time_embed_dim=8,
             projection_class_embeddings_input_dim=24,
+            remat=remat,
         )
+
+    @staticmethod
+    def nano(remat: bool = False):
+        """2-block topology (the JAX ``UNetConfig.nano()``): one cross-attn
+        down block and one plain block, mirrored on the way up."""
+        return UNetConfig(
+            down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+            up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
+            block_out_channels=(32, 32),
+            num_attention_heads=(2, 2),
+            cross_attention_dim=48,
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=24,
+            remat=remat,
+        )
+
+
+def call_block(remat: bool, block, *args):
+    """``block(*args)``; under ``remat`` with autograd recording, through
+    ``torch.utils.checkpoint`` (the JAX ``nn.remat`` of each block, the
+    reference's per-block gradient checkpointing): the block's activations
+    are dropped after the forward and recomputed in the backward."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def up_block_in_channels(channels: Sequence[int], layers_per_block: int):
@@ -91,13 +119,13 @@ def build_down_blocks(cfg, temb_dim: int) -> nn.ModuleList:
     return nn.ModuleList(blocks)
 
 
-def run_down_blocks(blocks, x, temb, context, indicator, context_clips):
+def run_down_blocks(blocks, x, temb, context, indicator, context_clips, remat=False):
     down_res = [x]
     for blk in blocks:
         if isinstance(blk, CrossAttnDownBlockSpatioTemporal):
-            x, states = blk(x, temb, context, indicator, context_clips)
+            x, states = call_block(remat, blk, x, temb, context, indicator, context_clips)
         else:
-            x, states = blk(x, temb, indicator)
+            x, states = call_block(remat, blk, x, temb, indicator)
         down_res += states
     return x, down_res
 
@@ -159,28 +187,33 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         x = sample.to(dtype)
         x = self.conv_in(x.reshape(b * f, *x.shape[2:])).reshape(b, f, *x.shape[2:4], -1)
+        remat = self.config.remat
         x, down_res = run_down_blocks(self.down_blocks, x, temb, context, indicator,
-                                      context_clips)
+                                      context_clips, remat)
 
+        # a ControlNet's residuals may come in another dtype (an fp32
+        # GestureNet over a bf16 UNet): each sum is rounded to the UNet's
+        # dtype, where the JAX UNet's next layer casts it
         if down_block_additional_residuals is not None:
             if len(down_block_additional_residuals) != len(down_res):
                 raise ValueError(
                     f"ControlNet produced {len(down_block_additional_residuals)} "
                     f"residuals but the UNet has {len(down_res)} skip states — "
                     f"mismatched UNet/ControlNet configs")
-            down_res = [r + a for r, a in zip(down_res, down_block_additional_residuals)]
+            down_res = [(r + a).to(dtype)
+                        for r, a in zip(down_res, down_block_additional_residuals)]
 
-        x = self.mid_block(x, temb, context, indicator, context_clips)
+        x = call_block(remat, self.mid_block, x, temb, context, indicator, context_clips)
         if mid_block_additional_residual is not None:
-            x = x + mid_block_additional_residual
+            x = (x + mid_block_additional_residual).to(dtype)
 
         n_res = self.config.layers_per_block + 1
         for blk in self.up_blocks:
             res, down_res = down_res[-n_res:], down_res[:-n_res]
             if isinstance(blk, CrossAttnUpBlockSpatioTemporal):
-                x = blk(x, res, temb, context, indicator, context_clips)
+                x = call_block(remat, blk, x, res, temb, context, indicator, context_clips)
             else:
-                x = blk(x, res, temb, indicator)
+                x = call_block(remat, blk, x, res, temb, indicator)
 
         flat = self.conv_out(self.conv_norm_out(x.reshape(b * f, *x.shape[2:])))
         return flat.reshape(b, f, *flat.shape[1:])

@@ -1,12 +1,14 @@
-"""Ops of the port: attention dispatch, the three Hopper kernels and resize."""
+"""Ops of the port: attention dispatch, the four Hopper kernels, the 8-bit
+quantiser and resize."""
 
-from . import flash_attention, groupnorm, ln_matmul
+from . import adam8bit, flash_attention, groupnorm, ln_matmul
 
 # the kernel wrappers, each with its module-level launch counter
 KERNELS = {
     "flash_attention": flash_attention,
     "groupnorm": groupnorm,
     "ln_matmul": ln_matmul,
+    "adam8bit": adam8bit,
 }
 
 

@@ -2,7 +2,8 @@
 
 All kernels live in one shared library with plain ``extern "C"`` launchers,
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/`` at the repo
-root and loaded with ``ctypes``.  The library name carries a hash of the
+root (one compiler process per source, in parallel, then one link) and
+loaded with ``ctypes``.  The library name carries a hash of the
 sources, so an edited kernel is rebuilt and a stale one is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "ttv_groupnorm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # x, gamma, beta, w, wb, out, stats, R, C, N, eps, has_bias, is_bf16, stream
     "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # g, mq, ms, nq, ns, step, mq2, ms2, nq2, ns2, nb, hyper (17 floats), stream
+    "ttv_adam8bit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_F), _P],
 }
 
 _lock = threading.Lock()
@@ -65,16 +68,39 @@ def _nvcc() -> str:
 
 
 def _build(target: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp)] + [str(p) for p in sorted(_CSRC.glob("*.cu"))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (target.parent / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-    os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
+    tag = f"{os.getpid()}.tmp"
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    flags = arch + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = target.parent / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [_nvcc()] + flags + ["-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode:
+            failed.append(src.name)
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log)[-8000:])
+        tmp = target.with_suffix(f".{tag}")
+        res = subprocess.run([_nvcc()] + arch + ["-shared", "-o", str(tmp)] + objs,
+                             capture_output=True, text=True)
+        log.append(f"== link (rc {res.returncode})\n{res.stdout}{res.stderr}")
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-8000:]}")
+        os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
+    finally:
+        (target.parent / "nvcc.log").write_text("\n".join(log))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def library():

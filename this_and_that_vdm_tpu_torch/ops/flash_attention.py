@@ -10,6 +10,8 @@ of q/k/v/o, i.e. tensor-core bound.
 
 ``flash_attention`` is the wrapper: on a CPU tensor it takes the plain
 version (``_plain``), on a CUDA tensor it launches the kernel or raises.
+Its gradient is the JAX ``custom_vjp`` rule (``_flash_bwd``): the backward
+recomputes the plain version and differentiates it (``_autograd``).
 The custom_partitioning / shard_map builds of the TPU file are mesh
 mechanics and have no counterpart here.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _native
+from . import _autograd, _native
 from .attention import _xla_attention as _plain
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
@@ -48,9 +50,33 @@ def supports(q, k, v) -> bool:
     return q.dtype in (torch.float32, torch.bfloat16)
 
 
-def flash_attention(q, k, v, scale: float):
-    """q, k, v: [B, S, H, D] -> [B, S, H, D] (forward only)."""
+def _launch(q, k, v, scale: float):
     global launches
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    _native.launch("ttv_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), b, s, h, d, float(scale),
+                   int(q.dtype == torch.bfloat16), _native.stream_ptr(q))
+    launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = _autograd.plain_vjp(lambda q, k, v: _plain(q, k, v, ctx.scale),
+                                    ctx.saved_tensors, ctx.needs_input_grad[:3], grad)
+        return grads + (None,)
+
+
+def flash_attention(q, k, v, scale: float):
+    """q, k, v: [B, S, H, D] -> [B, S, H, D]."""
     if q.device.type == "cpu":
         return _plain(q, k, v, scale)
     if q.device.type != "cuda":
@@ -71,9 +97,6 @@ def flash_attention(q, k, v, scale: float):
         raise ValueError("flash_attention: q, k, v on different devices")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
-    out = torch.empty_like(q)
-    _native.launch("ttv_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), b, s, h, d, float(scale),
-                   int(q.dtype == torch.bfloat16), _native.stream_ptr(q))
-    launches += 1
-    return out
+    if _autograd.needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _launch(q, k, v, scale)

@@ -13,7 +13,9 @@ bf16.
 
 ``group_norm`` is the wrapper used by every GroupNorm of the port: on a CPU
 tensor it takes the plain version, on a CUDA tensor it launches the kernel
-or raises.
+or raises.  Its gradient (x, gamma, beta) is the JAX ``custom_vjp`` rule
+(``models/layers.py`` ``_fused_gn_bwd``): the backward recomputes the plain
+version and differentiates it (``_autograd``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _native
+from . import _autograd, _native
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
@@ -59,10 +61,41 @@ def _plain(x, weight, bias, num_groups, eps, with_silu):
     return F.silu(out) if with_silu else out
 
 
+def _launch(x, weight, bias, num_groups, eps, with_silu):
+    global launches
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
+    ws = torch.zeros((n, num_groups, 2), device=x.device, dtype=torch.float32)
+    y = torch.empty_like(x)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    stream = _native.stream_ptr(x)
+    _native.launch("ttv_groupnorm_stats", x.data_ptr(), ws.data_ptr(), n, s, c,
+                   num_groups, _STATS_ROWS, is_bf16, stream)
+    blocks = max(1, min(_APPLY_BLOCKS, -(-s * c // (8 * _THREADS))))
+    _native.launch("ttv_groupnorm_apply", x.data_ptr(), ws.data_ptr(), weight.data_ptr(),
+                   bias.data_ptr(), y.data_ptr(), n, s, c, num_groups, float(eps),
+                   int(with_silu), blocks, is_bf16, stream)
+    launches += 1
+    return y
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, with_silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (num_groups, eps, with_silu)
+        return _launch(x, weight, bias, num_groups, eps, with_silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = _autograd.plain_vjp(lambda x, w, b: _plain(x, w, b, *ctx.args),
+                                    ctx.saved_tensors, ctx.needs_input_grad[:3], grad)
+        return grads + (None, None, None)
+
+
 def group_norm(x, weight, bias, num_groups: int, eps: float, with_silu: bool = False):
     """GroupNorm of channels-last ``x`` ([N, ..., C]; every axis between the
     first and the last is folded into the statistics), optional SiLU."""
-    global launches
     if x.device.type == "cpu":
         return _plain(x, weight, bias, num_groups, eps, with_silu)
     if x.device.type != "cuda":
@@ -84,15 +117,6 @@ def group_norm(x, weight, bias, num_groups: int, eps: float, with_silu: bool = F
         raise ValueError("group_norm: weight and bias must be [C]")
     weight = weight.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    ws = torch.zeros((n, num_groups, 2), device=x.device, dtype=torch.float32)
-    y = torch.empty_like(x)
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    stream = _native.stream_ptr(x)
-    _native.launch("ttv_groupnorm_stats", x.data_ptr(), ws.data_ptr(), n, s, c,
-                   num_groups, _STATS_ROWS, is_bf16, stream)
-    blocks = max(1, min(_APPLY_BLOCKS, -(-s * c // (8 * _THREADS))))
-    _native.launch("ttv_groupnorm_apply", x.data_ptr(), ws.data_ptr(), weight.data_ptr(),
-                   bias.data_ptr(), y.data_ptr(), n, s, c, num_groups, float(eps),
-                   int(with_silu), blocks, is_bf16, stream)
-    launches += 1
-    return y
+    if _autograd.needs_grad(x, weight, bias):
+        return _GroupNorm.apply(x, weight, bias, num_groups, eps, with_silu)
+    return _launch(x, weight, bias, num_groups, eps, with_silu)

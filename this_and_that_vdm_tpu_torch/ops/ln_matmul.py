@@ -11,7 +11,9 @@ N=960), 70 GFLOP at the level-3 GEGLU input (R=2688, C=1280, N=10240).
 
 ``ln_matmul`` is the wrapper used at every LN -> projection site of the
 port's transformers: on a CPU tensor it takes the plain version
-(``_reference``), on a CUDA tensor it launches the kernel or raises.
+(``_reference``), on a CUDA tensor it launches the kernel or raises.  Its
+gradient (x, scale, bias, w, wb) is the JAX ``custom_vjp`` rule (``_bwd``):
+the backward recomputes ``_reference`` and differentiates it (``_autograd``).
 
 Weights follow ``nn.Linear``: ``w`` is [N, C] (out, in), ``wb`` is [N].
 """
@@ -23,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _native
+from . import _autograd, _native
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
@@ -48,9 +50,37 @@ def _reference(x, scale, bias, w, wb, eps: float):
     return out
 
 
+def _launch(x2, scale, bias, w, wb, eps):
+    global launches
+    r, c = x2.shape
+    n = w.shape[0]
+    out = torch.empty((r, n), device=x2.device, dtype=x2.dtype)
+    stats = torch.empty((r, 2), device=x2.device, dtype=torch.float32)  # (mean, rstd)
+    _native.launch("ttv_ln_matmul", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                   w.data_ptr(), 0 if wb is None else wb.data_ptr(), out.data_ptr(),
+                   stats.data_ptr(), r, c, n, float(eps), int(wb is not None),
+                   int(x2.dtype == torch.bfloat16), _native.stream_ptr(x2))
+    launches += 1
+    return out
+
+
+class _LnMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, scale, bias, w, wb, eps):
+        ctx.save_for_backward(x2, scale, bias, w, wb)
+        ctx.eps = eps
+        return _launch(x2, scale, bias, w, wb, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = _autograd.plain_vjp(
+            lambda x, s, b, w, wb: _reference(x, s, b, w, wb, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], grad)
+        return grads + (None,)
+
+
 def ln_matmul(x, scale, bias, w, wb: Optional[torch.Tensor] = None, eps: float = 1e-5):
     """``layer_norm_fp32(x, scale, bias) @ w.T (+ wb)``; x: [..., C], w: [N, C]."""
-    global launches
     c = x.shape[-1]
     n = w.shape[0]
     lead = x.shape[:-1]
@@ -67,22 +97,16 @@ def ln_matmul(x, scale, bias, w, wb: Optional[torch.Tensor] = None, eps: float =
         raise ValueError("ln_matmul: w [N, C], scale/bias [C], wb [N]")
     if not x.is_contiguous():
         raise ValueError("ln_matmul: x must be contiguous")
-    r = x.numel() // c
-    x2 = x.view(r, c)
+    x2 = x.view(-1, c)
     w = w.to(x.dtype).contiguous()
     if x2.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("ln_matmul: x and w must be 16-byte aligned")
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    wb_ptr = 0
     if wb is not None:
         wb = wb.to(device=x.device, dtype=torch.float32).contiguous()
-        wb_ptr = wb.data_ptr()
-    out = torch.empty((r, n), device=x.device, dtype=x.dtype)
-    stats = torch.empty((r, 2), device=x.device, dtype=torch.float32)  # (mean, rstd)
-    _native.launch("ttv_ln_matmul", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                   w.data_ptr(), wb_ptr, out.data_ptr(), stats.data_ptr(), r, c, n, float(eps),
-                   int(wb is not None), int(x.dtype == torch.bfloat16),
-                   _native.stream_ptr(x))
-    launches += 1
+    if _autograd.needs_grad(x2, scale, bias, w, wb):
+        out = _LnMatmul.apply(x2, scale, bias, w, wb, eps)
+    else:
+        out = _launch(x2, scale, bias, w, wb, eps)
     return out.view(*lead, n)
