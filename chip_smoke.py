@@ -7,16 +7,23 @@ Phases (any failure raises and exits nonzero):
   1. device      a CUDA card must be present; prints its name and power
                  limit; TF32 is turned off for matmuls and cuDNN convolutions
                  (the comparisons below are against full-precision plain math)
-  2. build       nvcc builds the Hopper kernels from csrc/ into build/
+  2. build       nvcc builds the Hopper kernels from csrc/ into build/; the
+                 SASS of the bf16 K1 and K3 kernels must show wgmma (HGMMA)
+                 and TMA loads (UTMALDG) and no mma.sync (HMMA)
   3. kernels     each kernel against its plain PyTorch version on the card, at
                  the slices' shapes, in bf16 and fp32 (K4: fp32 steps, uint8
                  codes), with its time beside the plain version's, the time of
                  the PyTorch library call for the same function where there is
-                 one, and the least time the card could take (bound); then
-                 the backward of K1-K3 against autograd of the plain versions
+                 one, and the least time the card could take (bound).  K1 and
+                 K3 bf16 at every shape of the denoise step: K1 contiguous and
+                 as the .chunk(3) views of a fused qkv product, K3 at every
+                 (R, C, N) of its LN -> projection sites.  Then the backward
+                 of K1-K3 against autograd of the plain versions
   4. denoiser    one full-width ControlNet + UNet forward (CFG batch 2, 14
                  frames of 32x48 latents, bf16) with the kernels and through
-                 the plain versions; relative L2 error held to a bound
+                 the plain versions; relative L2 error held to a bound; then
+                 one more forward under torch.profiler: device ms by kernel,
+                 the device-busy share of its span, K1 and K3 ms per step
   5. slice       StableVideoDiffusionControlNetPipeline at full width (seeded
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
@@ -41,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -84,6 +92,22 @@ KERNEL_INFO = {
 }
 
 INFERENCE_KERNELS = ("flash_attention", "groupnorm", "ln_matmul")  # K4 runs in training only
+
+# Main-path shapes (the denoise step at CFG 2: 28 = 2 x 14 frames).  K1:
+# (shape, as .chunk(3) views of a fused qkv product); the first bf16 case is
+# the one the kernels line reports.  K3: (R, C, N, bias) of every LN ->
+# projection site: levels 1-3 and the level-4 mid block, N = C (the
+# cross-attention q), 3C (the fused qkv), 8C (the GEGLU input, with bias).
+K1_SHAPES = {torch.bfloat16: [((28, 1536, 5, 64), True), ((28, 1536, 5, 64), False),
+                              ((28, 384, 10, 64), True), ((28, 384, 10, 64), False),
+                              ((4, 1000, 5, 64), False)],
+             torch.float32: [((28, 1536, 5, 64), False), ((28, 384, 10, 64), False),
+                             ((4, 1000, 5, 64), False)]}
+_K3_ROWS = ((43008, 320), (10752, 640), (2688, 1280), (672, 1280))
+K3_SHAPES = {torch.bfloat16: [(r, c, n, n == 8 * c) for r, c in _K3_ROWS
+                              for n in (3 * c, c, 8 * c)],
+             torch.float32: [(43008, 320, 960, False), (43008, 320, 2560, True),
+                             (2688, 1280, 10240, True)]}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
 # by type (bf16 on the tensor cores, fp32 on the CUDA cores)
@@ -148,6 +172,41 @@ def phase_build():
     _native.library()
     log(f"[build] kernels built/loaded in {time.perf_counter() - t0:.2f} s "
         f"({_native.library_path()})")
+    sass_check(_native.library_path())
+
+
+# kernels that must run on wgmma (HGMMA) with TMA loads (UTMALDG) and no mma.sync (HMMA)
+HOPPER_KERNELS = ("flash_bf16", "ln_matmul_bf16")
+
+
+def sass_check(lib):
+    """Count the SASS opcodes of the bf16 K1 and K3 kernels in the built
+    library; raise if one lacks HGMMA or UTMALDG or still has HMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("SASS check: cuobjdump not found on PATH or in /usr/local/cuda/bin")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            cur = name if any(k in name for k in HOPPER_KERNELS) else None
+            if cur:
+                counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "HMMA"), 0)
+        elif cur:
+            for op in counts[cur]:
+                counts[cur][op] += f" {op}." in line or f" {op} " in line
+    found = {k for k in HOPPER_KERNELS if any(k in n for n in counts)}
+    bad = [n for n, c in counts.items() if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]]
+    def short(name):  # flash_bf16<64>, ln_matmul_bf16<2> from the mangled name
+        m = re.search(r"(" + "|".join(HOPPER_KERNELS) + r")ILi(\d+)E", name)
+        return f"{m.group(1)}<{m.group(2)}>" if m else name
+
+    log("[build] SASS of the wgmma kernels: "
+        + "; ".join(f"{short(n)} {c}" for n, c in counts.items()))
+    if bad or found != set(HOPPER_KERNELS):
+        raise RuntimeError(f"SASS check failed: {bad or sorted(set(HOPPER_KERNELS) - found)}")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -178,12 +237,17 @@ def kernel_cases():
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "fp32"
         isz = torch.finfo(dtype).bits // 8
-        for shape in ((28, 1536, 5, 64), (28, 384, 10, 64), (4, 1000, 5, 64)):
-            q, k, v = (_randn(shape, dtype, s) for s in range(3))
+        for shape, views in K1_SHAPES[dtype]:
             b, sq, h, d = shape
+            if views:  # the .chunk(3) views of a fused [B, S, 3C] qkv product, as on the path
+                qkv = _randn((b, sq, 3 * h * d), dtype, 0)
+                q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
+            else:
+                q, k, v = (_randn(shape, dtype, s) for s in range(3))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D] views
             cases.append(dict(
-                kernel="flash_attention", label=f"{list(shape)} {dn}",
+                kernel="flash_attention",
+                label=f"{list(shape)}{' qkv views' if views else ''} {dn}",
                 kern=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, 0.125),
                 plain=lambda q=q, k=k, v=v: fa._plain(q, k, v, 0.125), scale=None,
                 work=(4.0 * b * h * sq * sq * d, 4.0 * q.numel() * isz, dtype),
@@ -214,8 +278,7 @@ def kernel_cases():
                       torch.float32),
                 library=library,
                 library_note="F.group_norm" + (" + F.silu (two calls)" if silu else "")))
-        for r, c, n, bias in ((43008, 320, 960, False), (43008, 320, 2560, True),
-                              (2688, 1280, 10240, True)):
+        for r, c, n, bias in K3_SHAPES[dtype]:
             x = _randn((r, c), dtype, 7)
             s, b = _randn((c,), torch.float32, 8, 0.1, 1.0), _randn((c,), torch.float32, 9, 0.1)
             w = _randn((n, c), dtype, 10, c ** -0.5)
@@ -444,10 +507,9 @@ def plain_versions():
             setattr(m, n, f)
 
 
-@torch.no_grad()
-def phase_denoiser(pipe):
-    from this_and_that_vdm_tpu_torch import ops
-
+def denoiser_step(pipe):
+    """One denoise step's model work: ControlNet + UNet at full width, CFG
+    batch 2, 14 frames of 32x48 latents, seeded inputs."""
     b, h, w = 2, H // 8, W // 8
     g = torch.Generator(device="cuda").manual_seed(7)
     inp = torch.randn((b, F, h, w, 8), generator=g, device="cuda")
@@ -461,6 +523,27 @@ def phase_denoiser(pipe):
         return pipe.unet(inp, t, states, ids, down_block_additional_residuals=res,
                          mid_block_additional_residual=mid).float()
 
+    return forward
+
+
+def profile_step(forward):
+    """One call of ``forward`` under torch.profiler: (device_time dict,
+    device-busy share of its span, span ms, wall ms)."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, span_ms = busy_share(prof)
+    return device_time(prof), busy, span_ms, wall_ms
+
+
+@torch.no_grad()
+def phase_denoiser(pipe):
+    from this_and_that_vdm_tpu_torch import ops
+
+    forward = denoiser_step(pipe)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     got = forward()
@@ -480,7 +563,19 @@ def phase_denoiser(pipe):
         raise RuntimeError(f"denoiser check failed: rel L2 {rel_l2}")
     if min(counts[k] for k in INFERENCE_KERNELS) == 0:
         raise RuntimeError(f"denoiser forward skipped a kernel: {counts}")
-    return rel_l2
+
+    # one denoise step (ControlNet + UNet at CFG 2) under the profiler
+    prof_dt, busy, span_ms, wall_ms = profile_step(forward)
+    ms = prof_dt["kernels_ms"]
+    step = dict(device_ms=prof_dt["total_ms"], wall_ms=wall_ms, span_ms=span_ms, busy_share=busy,
+                k1_ms=ms["flash_attention bf16"], k3_ms=ms["ln_matmul bf16"], kernels_ms=ms,
+                top_ms=prof_dt["top_ms"])
+    log(f"[denoiser] profiled step: device {step['device_ms']:.3f} ms over a {span_ms:.3f} ms "
+        f"span (busy {busy:.3f}; wall {wall_ms:.3f} ms under the profiler); K1 "
+        f"{step['k1_ms']:.3f} ms, K3 {step['k3_ms']:.3f} ms per step; the port's kernels (ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + "; largest: " + "; ".join(f"{n} {t:.3f}" for n, t in prof_dt["top_ms"]))
+    return rel_l2, step
 
 
 def gesture_raster(points, seed):
@@ -555,7 +650,7 @@ def _same(snap, tensors):
 # kernel-name pieces of each kernel of the port, by dtype where it matters
 KERNEL_NAMES = {"flash_attention fp32": ("flash_f32",), "flash_attention bf16": ("flash_bf16",),
                 "groupnorm": ("gn_stats", "gn_apply"), "ln_matmul fp32": ("ln_matmul_f32",),
-                "ln_matmul bf16": ("ln_stats", "ln_matmul_bf16"),
+                "ln_matmul bf16": ("ln_matmul_bf16",),
                 "adam8bit": ("adam8bit_kernel",)}
 
 
@@ -571,6 +666,23 @@ def device_time(prof):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(total_ms=sum(by_name.values()), kernels_ms=ours,
                 top_ms=[(n[:90], t) for n, t in top])
+
+
+def busy_share(prof):
+    """(share of the span from the first kernel's start to the last one's end
+    in which a kernel ran, that span in ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler saw no device activity")
+    busy, (start, end) = 0.0, spans[0]
+    first = start
+    for a, b in spans[1:]:
+        if a > end:
+            busy, start = busy + end - start, a
+        end = max(end, b)
+    busy += end - start
+    return busy / (end - first), (end - first) / 1e3
 
 
 def phase_train(mode, config, steps, profile, smi):
@@ -684,7 +796,7 @@ def main():
     kern = phase_kernels()
     backward = phase_backward()
     pipe = build_pipeline()
-    rel_l2 = phase_denoiser(pipe)
+    rel_l2, step = phase_denoiser(pipe)
     counts, stages, peak = phase_slice(pipe, smi)
     del pipe
     torch.cuda.empty_cache()
@@ -703,7 +815,8 @@ def main():
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, launches_by_path=paths,
                        kernel_cases={k: v["cases"] for k, v in kern.items()},
-                       backward_rel_err=backward, denoiser_rel_l2=rel_l2, requests=stages,
+                       backward_rel_err=backward, denoiser_rel_l2=rel_l2,
+                       denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, train=train,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")

@@ -54,6 +54,33 @@ def test_flash_attention_kernel(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1536, 5, 64), (2, 384, 10, 64), (1, 1000, 2, 64),
+                                   (1, 300, 2, 128)])
+def test_flash_attention_kernel_reads_qkv_views(dev, dtype, shape):
+    """q, k, v as the transformers make them, .chunk(3) of a fused [B, S, 3C]
+    qkv product: read in place through their strides, no copy."""
+    b, s, h, d = shape
+    qkv = _randn((b, s, 3 * h * d), dtype, dev, 0)
+    q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, d ** -0.5)
+    want = flash_attention._plain(q.contiguous(), k.contiguous(), v.contiguous(), d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1 and got.is_contiguous()
+    assert _rel(got, want) < BOUND[dtype]
+
+
+def test_flash_attention_refuses_views_it_cannot_read(dev):
+    x = torch.zeros((2, 10, 384, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head stride"):
+        flash_attention.flash_attention(*(x.transpose(1, 2),) * 3, 0.125)  # [B, H, S, D] storage
+    y = torch.zeros((2, 384, 652), device=dev, dtype=torch.bfloat16)[..., :640]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention.flash_attention(*(y.reshape(2, 384, 10, 64),) * 3, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,eps,silu", [((4, 1536, 320), 1e-6, True),
                                             ((2, 3, 24, 32, 640), 1e-5, False),
                                             ((1, 4096, 2560), 1e-6, True),
@@ -82,7 +109,9 @@ def test_groupnorm_kernel_constant_input_is_finite(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,c,n,bias", [(3000, 320, 960, False), (1000, 320, 2560, True),
-                                        (384, 1280, 10240, True), (77, 64, 40, True)])
+                                        (384, 1280, 10240, True), (77, 64, 40, True),
+                                        (3000, 320, 320, False), (1000, 640, 1920, False),
+                                        (672, 1280, 1280, False), (672, 1280, 3840, True)])
 def test_ln_matmul_kernel(dev, dtype, r, c, n, bias):
     x = _randn((r, c), dtype, dev, 0)
     s, b = 1 + 0.1 * _randn((c,), torch.float32, dev, 1), 0.1 * _randn((c,), torch.float32, dev, 2)
@@ -112,6 +141,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         x = torch.zeros((16, 64), device=dev, dtype=torch.float16)
         ln_matmul.ln_matmul(x, torch.ones(64), torch.zeros(64), torch.zeros((8, 64)))
+    with pytest.raises(ValueError):  # bf16 keeps normalised rows of at most 1280 in shared memory
+        x = torch.zeros((16, 2048), device=dev, dtype=torch.bfloat16)
+        ln_matmul.ln_matmul(x, torch.ones(2048), torch.zeros(2048),
+                            torch.zeros((8, 2048), device=dev, dtype=torch.bfloat16))
 
 
 def _k4_inputs(dev, nb, seed, valid=None):

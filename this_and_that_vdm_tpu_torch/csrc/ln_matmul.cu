@@ -1,42 +1,56 @@
 // K3: LayerNorm -> matmul (+ bias), for Hopper (sm_90a).
 //
 // Replaces this_and_that_vdm_tpu/ops/ln_matmul.py::_kernel (launched by
-// _ln_matmul_pallas_local).  On the TPU the grid walks the column blocks of
-// one row block in order, so the normalised [BR, C] rows are computed once
-// into a VMEM scratch and reused.  On the card blocks run in no order and
-// share nothing, so the work splits in two launches:
+// _ln_matmul_pallas_local).  The TPU grid walks the column blocks of one row
+// block in order, normalising the [BR, C] rows once into a VMEM scratch
+// (xn_ref, under pl.when(j == 0)) and reusing them for every column block.
+// Here a block does the same: it owns a row block and walks column tiles.
 //
-//   ln_stats   one warp per row: fp32 mean, then the variance of the centred
-//              row (two passes, as jnp.mean / jnp.var), into a per-row
-//              [R, 2] (mean, rstd) buffer -- 8 bytes a row.
-//   ln_matmul  one block per 128 x 128 output tile (8 warps, each 64 x 32).
-//              It walks C in chunks of 32: each thread fetches its 16-byte
-//              pieces of the x and weight chunks into registers one chunk
-//              ahead, normalises the x piece with the row's stats and the
-//              affine, rounds it to bf16 and stores both into the other half
-//              of a double-buffered shared-memory stage -- the counterpart of
-//              the TPU's xn_ref, a chunk at a time, so any C fits.  Products
-//              run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-//              fp32 accumulate in registers); the fp32 bias is added in the
-//              epilogue, which leaves in 16-byte stores.  The normalised
-//              tensor never goes to device memory.
+// bf16 (the main path): wgmma + TMA, 384 threads a block -- warpgroups 0 and
+// 1 compute, one lane of warpgroup 2 is the producer (setmaxnreg gives the
+// compute warpgroups 240 registers, the producer 24) -- and a persistent
+// grid: the (row block, column tile) pairs, row-major, are cut into one
+// contiguous range per block, at most one block per SM.  At each new row
+// block
+//   1. the producer's TMA brings x [BM, C] into shared memory, 128-byte
+//      swizzled, in 64-column blocks (the counterpart of xn_ref);
+//   2. the 8 compute warps, a few lanes to a row, take fp32 statistics
+//      (mean, then the variance of the centred row: two passes, as
+//      jnp.mean / jnp.var) from registers, and write the normalised, affine
+//      row back in place rounded to bf16 -- before any product, as the TPU
+//      kernel rounds xn to the input dtype;
+// then the weight [N, C] (nn.Linear's K-major layout) streams through a
+// ring of [BN, KW] TMA stages ("full" / "empty" mbarriers; a stage is
+// released once its products are done, with the next chunk's products in
+// flight behind them; at a new row block the first
+// chunks are loaded before the rows, and the next rows are prefetched into
+// L2).  The two compute warpgroups take alternate tiles, in turns (named
+// barriers), so that one's epilogue overlaps the other's products; each
+// runs wgmma m64n128k16 with both operands in shared memory into two fp32
+// accumulators.  The epilogue adds the fp32 bias, rounds once to bf16 and
+// stores 16 bytes a lane after a quad shuffle.  The normalised tensor never
+// reaches device memory.
+//
+// Tiles (chosen in Python by ops/ln_matmul.plan, a function of R, C, N):
+//   WM = 2: BM = 128 rows, BN = 128 -- while the normalised [128, C] fits
+//           with >= 2 stages (C <= 640 here);
+//   WM = 1: BM = 64 rows, BN = 256 -- C <= 1280; weight stages of 32
+//           columns at 64-byte swizzle, 4 of them.
+// Rows past R, columns past N and C past a multiple of 64 are zero-filled
+// by TMA and never stored.  C % 8 == 0, N % 8 == 0 and 16-byte-aligned x, w
+// and out (the wrapper checks).
 //
 // fp32 inputs take a simpler kernel (64 x 64 tiles, per-block statistics,
-// plain FMAs) so that fp32 stays full fp32; it is the comparison path, not
-// the bf16 main path.
-//
-// Weight layout: w is the nn.Linear weight [N, C] (out, in), read as the
-// column-major [C, N] operand; bias is fp32 [N].  Rows past R and columns
-// past N are masked; C % 8 == 0 and 16-byte-aligned x and w (the wrapper
-// checks both).
+// plain FMAs) so that fp32 stays full fp32; it is the training path's
+// comparison kernel, not the bf16 main path.
 //
 // Bound at the slice's shapes: R=43008, C=320, N=960 (qkv) is 26 GFLOP
-// against ~110 MB -- compute-bound; C=1280, N=10240 at R=2688 is 70 GFLOP.
-// mma.sync without wgmma, TMA or a deeper pipeline leaves most of the tensor
-// cores' rate on the table; those are later work.
+// against ~110 MB, bound by bytes at 989 TFLOP/s by a hair; C=1280, N=10240
+// at R=2688 is 70 GFLOP, tensor-core bound.  At WM = 1 each weight byte
+// feeds only 64 rows, so the weight stream from L2 is what limits it.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -44,198 +58,304 @@ namespace {
 
 // ------------------------------------------------------------ bf16 path
 
-constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-constexpr int LDS = BK + 8;  // shared row stride (elements): 80 bytes, 16-byte aligned
-constexpr int STAGE = BM * LDS;  // elements of one A (or B) stage
+constexpr int THREADS_BF16 = 384;  // warpgroups 0-1 compute, warpgroup 2 produces (one lane)
+constexpr int UNITS = 5;           // 16-byte pieces of a row per lane: C <= 32 * 8 * UNITS
+constexpr int kSmemLimit = 232448;  // shared memory one block may use on sm_90
 
-__global__ void __launch_bounds__(256)
-    ln_stats(const bf16* __restrict__ x, float2* __restrict__ stats, int R, int C,
-             float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (row >= R) return;
-  const bf16* xr = x + (size_t)row * C;
-  float s = 0.f;
-  for (int c = lane * 8; c < C; c += 256) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const bf16* v = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s += __bfloat162float(v[j]);
-  }
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float mean = s / C;
-  float q = 0.f;
-  for (int c = lane * 8; c < C; c += 256) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const bf16* v = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float d = __bfloat162float(v[j]) - mean;
-      q = fmaf(d, d, q);
-    }
-  }
-  for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-  if (lane == 0) stats[row] = make_float2(mean, rsqrtf(q / C + eps));
+// sum over the `lanes` (a power of two) consecutive lanes of a row group
+__device__ __forceinline__ float group_sum(float v, int lanes) {
+  for (int o = lanes >> 1; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16: {a0, a1, a2, a3} = rows {g, g+8, g, g+8}, cols {2t, 2t, 2t+8, 2t+8} (+0, +1)
-//   B 16x8:  {b0, b1} = rows {2t, 2t+8} (+0, +1), col g
-//   C 16x8:  {c0, c1} = row g, cols 2t, 2t+1;  {c2, c3} = row g+8
-// With an 80-byte shared row stride the 32-bit fragment loads of the 8 rows
-// x 4 words a load touches fall in 32 distinct banks.
-__global__ void __launch_bounds__(THREADS, 2)  // <= 128 registers: two blocks per SM
-    ln_matmul_bf16(const bf16* __restrict__ x, const float2* __restrict__ stats,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   const bf16* __restrict__ w, const float* __restrict__ wb,
-                   bf16* __restrict__ out, int R, int C, int N, int has_bias) {
-  __shared__ __align__(128) bf16 smem[4 * STAGE];  // A0, A1, B0, B1: 40 KB
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64, cols wn*32
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // each thread moves 2 16-byte pieces of A and of B per chunk: piece
-  // p = tid + i*256 -> tile row p / 4, columns pcol .. pcol + 8 of the chunk
-  const int pcol = (tid & 3) * 8;
-  int prow[2];
-  float2 st[2];
+// Normalise the BM rows of x in sA in place (compute warp cw of 8).  A row
+// is held by the fewest lanes (a power of two, `lanes`) that keep it in
+// UNITS pieces of 8 columns each, so a warp works on 32 / lanes rows at once
+// (4 at C = 320).  Piece j of row r sits in 64-column block j / 8 at the
+// 16-byte slot (j % 8) ^ (r % 8): the 128-byte swizzle of the TMA.
+template <int BM>
+__device__ __forceinline__ void normalise_rows(uint8_t* sA, int cw, int lane, int C,
+                                               const float* __restrict__ gamma,
+                                               const float* __restrict__ beta, float eps) {
+  const int pieces = C >> 3;
+  int lanes = 1;
+  while (lanes * UNITS < pieces) lanes <<= 1;
+  const int per_warp = 32 / lanes, sub = lane % lanes;
+  for (int r = cw * per_warp + lane / lanes; r < BM; r += 8 * per_warp) {
+    uint8_t* row = sA + r * 128;
+    uint4 v[UNITS];
+    float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    prow[i] = (tid + i * THREADS) >> 2;
-    const int row = m0 + prow[i];
-    st[i] = row < R ? stats[row] : make_float2(0.f, 0.f);
-  }
-  uint4 ra[2], rb[2];
-  float4 rg[2], rbe[2];  // gamma and beta of the thread's 8 columns
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  auto fetch = [&](int k0) {
-    const int c = k0 + pcol;
-    if (c < C) {
-      rg[0] = *reinterpret_cast<const float4*>(gamma + c);
-      rg[1] = *reinterpret_cast<const float4*>(gamma + c + 4);
-      rbe[0] = *reinterpret_cast<const float4*>(beta + c);
-      rbe[1] = *reinterpret_cast<const float4*>(beta + c + 4);
-    }
+    for (int i = 0; i < UNITS; ++i) {
+      const int j = sub + lanes * i;
+      if (j < pieces) {
+        v[i] = *reinterpret_cast<const uint4*>(row + (j >> 3) * BM * 128 + (((j & 7) ^ (r & 7)) << 4));
+        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + prow[i], col = n0 + prow[i];
-      ra[i] = (row < R && c < C) ? *reinterpret_cast<const uint4*>(x + (size_t)row * C + c)
-                                 : zero;
-      rb[i] = (col < N && c < C) ? *reinterpret_cast<const uint4*>(w + (size_t)col * C + c)
-                                 : zero;
-    }
-  };
-  auto put = [&](int stage, int k0) {
-    bf16* sA = smem + stage * STAGE;
-    bf16* sB = smem + (2 + stage) * STAGE;
-    const float gm[8] = {rg[0].x, rg[0].y, rg[0].z, rg[0].w, rg[1].x, rg[1].y, rg[1].z, rg[1].w};
-    const float bt[8] = {rbe[0].x, rbe[0].y, rbe[0].z, rbe[0].w,
-                         rbe[1].x, rbe[1].y, rbe[1].z, rbe[1].w};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 na = zero;
-      if (k0 + pcol < C) {
-        const bf16* v = reinterpret_cast<const bf16*>(&ra[i]);
-        bf16* o = reinterpret_cast<bf16*>(&na);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          o[j] = __float2bfloat16(fmaf((__bfloat162float(v[j]) - st[i].x) * st[i].y, gm[j], bt[j]));
+        for (int k = 0; k < 8; ++k) s += __bfloat162float(e[k]);
       }
-      *reinterpret_cast<uint4*>(sA + prow[i] * LDS + pcol) = na;
-      *reinterpret_cast<uint4*>(sB + prow[i] * LDS + pcol) = rb[i];
     }
-  };
-
-  float acc[4][4][4];
+    const float mean = group_sum(s, lanes) / C;
+    float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < UNITS; ++i) {
+      if (sub + lanes * i < pieces) {
+        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (C + BK - 1) / BK;
-  fetch(0);
-  put(0, 0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * BK);  // in flight during the products
-    const bf16* sA = smem + cur * STAGE + (wm * 64 + g) * LDS + 2 * t;
-    const bf16* sB = smem + (2 + cur) * STAGE + (wn * 32 + g) * LDS + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bf16* pa = sA + i * 16 * LDS + kk;
-        a[i][0] = ld32(pa);
-        a[i][1] = ld32(pa + 8 * LDS);
-        a[i][2] = ld32(pa + 8);
-        a[i][3] = ld32(pa + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* pb = sB + j * 8 * LDS + kk;
-        b[j][0] = ld32(pb);
-        b[j][1] = ld32(pb + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-    // the other stage was last read in iteration kt-1, before its barrier
-    if (kt + 1 < nk) put(cur ^ 1, (kt + 1) * BK);
-    __syncthreads();
-  }
-
-  // epilogue: each 16 x 32 row band of the warp tile goes through a per-warp
-  // fp32 staging tile (reusing the stages), then out in 16-byte stores
-  constexpr int LT = 32 + 4;
-  float* tile = reinterpret_cast<float*>(smem) + warp * 16 * LT;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      tile[g * LT + j * 8 + 2 * t] = acc[i][j][0];
-      tile[g * LT + j * 8 + 2 * t + 1] = acc[i][j][1];
-      tile[(g + 8) * LT + j * 8 + 2 * t] = acc[i][j][2];
-      tile[(g + 8) * LT + j * 8 + 2 * t + 1] = acc[i][j][3];
-    }
-    __syncwarp();
-    const int rr = lane >> 1, cc = (lane & 1) * 16;
-    const int row = m0 + wm * 64 + i * 16 + rr;
-    if (row < R) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col0 = n0 + wn * 32 + cc + h * 8;
-        bf16* dst = out + (size_t)row * N + col0;
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = tile[rr * LT + cc + h * 8 + e] + (has_bias && col0 + e < N ? wb[col0 + e] : 0.f);
-        if (col0 + 8 <= N && (N & 7) == 0) {
-          ttv::store8(dst, v);
-        } else {
-          for (int e = 0; e < 8 && col0 + e < N; ++e) dst[e] = __float2bfloat16(v[e]);
+        for (int k = 0; k < 8; ++k) {
+          const float d = __bfloat162float(e[k]) - mean;
+          q = fmaf(d, d, q);
         }
       }
     }
-    __syncwarp();
+    const float rstd = rsqrtf(group_sum(q, lanes) / C + eps);
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int j = sub + lanes * i;
+      if (j < pieces) {
+        const int c = j * 8;
+        const float4 g0 = __ldg(reinterpret_cast<const float4*>(gamma + c));
+        const float4 g1 = __ldg(reinterpret_cast<const float4*>(gamma + c + 4));
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(beta + c));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(beta + c + 4));
+        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+        uint4 y;
+        bf16* ye = reinterpret_cast<bf16*>(&y);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          ye[k] = __float2bfloat16(fmaf((__bfloat162float(e[k]) - mean) * rstd, gm[k], bt[k]));
+        *reinterpret_cast<uint4*>(row + (j >> 3) * BM * 128 + (((j & 7) ^ (r & 7)) << 4)) = y;
+      }
+    }
   }
+}
+
+// Row block BM, column tile BN, and the weight stage: KW columns of C
+// (64 at 128-byte swizzle; 32 at 64-byte swizzle, so that C = 1280 keeps 4
+// stages in flight beside its 160 KB of normalised rows).  A warpgroup
+// computes a whole BM x BN tile as two 64 x 128 parts: rows (WM = 2) or
+// columns (WM = 1).
+template <int WM>
+struct LnTiles {
+  static constexpr int BM = 64 * WM, BN = 128 * (2 / WM);
+  static constexpr int KW = WM == 2 ? 64 : 32;
+  static constexpr int STAGE = BN * KW * 2;  // bytes
+  static constexpr int SBO = 8 * KW * 2;     // 8-row swizzle atom
+  static constexpr uint64_t LAYOUT = WM == 2 ? 1 : 2;
+};
+
+// Shared memory: sA [KB][BM rows][128 bytes], then the ring [stages][BN
+// rows][KW * 2 bytes], then 2 * stages + 2 barriers; 1024 bytes of slack
+// align the tiles.  Must match ops/ln_matmul.plan.
+template <int WM>
+size_t ln_smem_bytes(int C, int stages) {
+  using T = LnTiles<WM>;
+  return 1024 + (size_t)((C + 63) / 64) * T::BM * 128 + (size_t)stages * T::STAGE +
+         8 * (2 * stages + 2);
+}
+
+// the fp32 bias at columns c + 8j, c + 8j + 1 (zero past N or without one)
+__device__ __forceinline__ void load_bias(float2 (&bias)[16], const float* __restrict__ wb,
+                                          int c, int N) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    bias[j] = (wb != nullptr && c + 8 * j < N)
+                  ? __ldg(reinterpret_cast<const float2*>(wb + c + 8 * j))
+                  : make_float2(0.f, 0.f);
+}
+
+// + bias (fp32), one rounding, 16 bytes a lane: one 64 x 128 part, rows
+// row0 (+8), columns col0 + 8j + 2t (+1)
+__device__ __forceinline__ void store_part(const float (&acc)[64], const float2 (&bias)[16],
+                                           bf16* __restrict__ out, int row0, int col0, int t,
+                                           int R, int N) {
+#pragma unroll
+  for (int gr = 0; gr < 4; ++gr)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jb = 4 * gr + i;
+        w[i] = hop::pack_bf16(acc[4 * jb + 2 * hh] + bias[jb].x, acc[4 * jb + 2 * hh + 1] + bias[jb].y);
+      }
+      const uint4 u = hop::quad_transpose(w, t);
+      const int row = row0 + 8 * hh, col = col0 + 8 * (4 * gr + t);
+      if (row < R && col < N) *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = u;
+    }
+}
+
+// tiles: (row block, column tile) in row-major order; a block takes one
+// contiguous range of them and its warpgroups take turns, tile by tile
+template <int WM>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+    ln_matmul_bf16(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   const float* __restrict__ wb, bf16* __restrict__ out, int R, int C, int N,
+                   float eps, int stages, int tiles_n, int tiles) {
+  using T = LnTiles<WM>;
+  constexpr int BM = T::BM, BN = T::BN, KW = T::KW;
+  const int KB = (C + 63) / 64, KC = (C + KW - 1) / KW;  // 64-column blocks, weight chunks
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sA = hop::align1024(smem_raw);
+  uint8_t* ring = sA + KB * BM * 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T::STAGE);
+  uint64_t* empty = full + stages;
+  uint64_t* a_full = empty + stages;
+  uint64_t* a_empty = a_full + 1;
+
+  const int t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 4);  // the 4 warps of the warpgroup that owns the tile
+    }
+    hop::mbar_init(a_full, 1);
+    hop::mbar_init(a_empty, 8);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // 384 threads leave ptxas 168 registers a thread; the producer warpgroup
+  // gives back all but 24 and the compute warpgroups take 240, for two
+  // 64-register accumulators and the epilogue
+  if (warp >= 8) {  // producer: one lane issues every copy, tile by tile
+    hop::regs_dec<24>();
+    if (warp == 8 && lane == 0) {
+      int it = 0, seg = 0;
+      auto load_w = [&](int kc, int nt) {
+        const int s = it % stages, u = it / stages;
+        if (u > 0) hop::mbar_wait(&empty[s], (u - 1) & 1);
+        hop::mbar_expect_tx(&full[s], T::STAGE);
+        hop::tma_load_2d(ring + s * T::STAGE, &mw, &full[s], kc * KW, nt * BN);
+        ++it;
+      };
+      for (int tt = t0; tt < t1; ++tt) {
+        const int rb = tt / tiles_n, nt = tt % tiles_n;
+        int kc = 0;
+        if (tt == t0 || nt == 0) {  // a new row block: x once, when sA is free
+          if (seg > 0) {
+            // the new tile's first weight chunks need only free stages
+            for (; kc < KC && kc < stages; ++kc) load_w(kc, nt);
+            hop::mbar_wait(a_empty, (seg - 1) & 1);
+          }
+          hop::mbar_expect_tx(a_full, KB * BM * 128);
+          for (int kb = 0; kb < KB; ++kb)
+            hop::tma_load_2d(sA + kb * BM * 128, &mx, a_full, kb * 64, rb * BM);
+          if ((rb + 1) * tiles_n < t1)  // this range's next row block, into L2
+            for (int kb = 0; kb < KB; ++kb) hop::tma_prefetch_2d(&mx, kb * 64, (rb + 1) * BM);
+          ++seg;
+        }
+        for (; kc < KC; ++kc) load_w(kc, nt);
+      }
+    }
+  } else {
+  hop::regs_inc<240>();
+  // compute warpgroup wg: the tiles t0 + wg, t0 + wg + 2, ...; part p of a
+  // tile is rows p*64 .. (WM = 2) or columns p*128 .. (WM = 1)
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  float acc0[64], acc1[64];
+  int seg = 0;
+  // Turns (named barriers 2 and 3): a warpgroup starts its tile's products
+  // only after the other has taken every chunk of the tile before, so no
+  // warpgroup waits on a stage more than one ring lap ahead (a parity wait
+  // cannot tell laps apart) -- and one's epilogue overlaps the other's loop.
+  auto my_turn = [&]() { hop::named_sync(2 + wg, 256); };
+  auto your_turn = [&](int tt) {
+    if (tt + 1 < t1) hop::named_arrive(3 - wg, 256);  // the other has a next tile
+  };
+  if (wg == 1 && t0 < t1) hop::named_arrive(2, 256);  // warpgroup 0 starts
+  for (int tt = t0; tt < t1; ++tt) {
+    const int rb = tt / tiles_n, nt = tt % tiles_n;
+    if (tt == t0 || nt == 0) {  // both warpgroups normalise each row block
+      if (tt != t0 && lane == 0) hop::mbar_arrive(a_empty);  // done with the old rows
+      hop::mbar_wait(a_full, seg & 1);
+      normalise_rows<BM>(sA, warp, lane, C, gamma, beta, eps);
+      hop::fence_async_smem();  // the normalised rows, visible to wgmma
+      hop::named_sync(1, 256);
+      ++seg;
+    }
+    if (((tt - t0) & 1) != wg) continue;
+
+    my_turn();
+    int held = -1;  // the stage of the chunk still in flight
+    for (int kc = 0; kc < KC; ++kc) {
+      const int it = (tt - t0) * KC + kc, s = it % stages;
+      hop::mbar_wait(&full[s], (it / stages) & 1);
+      // every stage the other warpgroup will wait on has now been waited on
+      // once (here or by it), so it may start while this chunk computes
+      if (kc == KC - 1) your_turn(tt);
+      const uint8_t* bt = ring + s * T::STAGE;
+      // columns kc*KW .. of C: 64-column block and byte offset inside its row
+      const uint8_t* at = sA + (kc * KW / 64) * BM * 128 + (kc * KW % 64) * 2;
+      constexpr int A1 = WM == 2 ? 64 * 128 : 0, B1 = WM == 2 ? 0 : 128 * KW * 2;  // part 1
+      hop::fence_acc(acc0);
+      hop::fence_acc(acc1);
+      hop::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KW / 16; ++ks) {
+        hop::wgmma_ss(acc0, hop::desc(at + ks * 32, 16, 1024),
+                      hop::desc(bt + ks * 32, 16, T::SBO, T::LAYOUT), kc > 0 || ks > 0);
+        hop::wgmma_ss(acc1, hop::desc(at + A1 + ks * 32, 16, 1024),
+                      hop::desc(bt + B1 + ks * 32, 16, T::SBO, T::LAYOUT), kc > 0 || ks > 0);
+      }
+      hop::wg_commit();
+      // one chunk stays in flight, so the tensor pipe does not drain between
+      // chunks; the one before it is done and its stage is free
+      if (held >= 0) {
+        hop::wg_wait<1>();
+        if (lane == 0) hop::mbar_arrive(&empty[held]);
+      }
+      held = s;
+    }
+    hop::wg_wait<0>();
+    hop::fence_acc(acc0);
+    hop::fence_acc(acc1);
+    if (lane == 0) hop::mbar_arrive(&empty[held]);
+
+    // epilogue (overlaps the other warpgroup's products): the bias of this
+    // lane's columns of a part is loaded at once, then the part is stored
+    const int row0 = rb * BM + wl * 16 + g, col0 = nt * BN;
+    float2 bias[16];
+    load_bias(bias, wb, col0 + 2 * t, N);
+    store_part(acc0, bias, out, row0, col0, t, R, N);
+    if (WM == 1) load_bias(bias, wb, col0 + 128 + 2 * t, N);
+    store_part(acc1, bias, out, row0 + (WM == 2 ? 64 : 0), col0 + (WM == 2 ? 0 : 128), t, R, N);
+  }
+  }
+}
+
+template <int WM>
+int launch_bf16(const void* x, const void* gamma, const void* beta, const void* w,
+                const void* wb, void* out, int R, int C, int N, float eps, int stages, int grid,
+                int smem, cudaStream_t st) {
+  using T = LnTiles<WM>;
+  if (stages < 2 || (size_t)smem < ln_smem_bytes<WM>(C, stages) || smem > kSmemLimit ||
+      C > 32 * 8 * UNITS)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const cuuint64_t xdims[2] = {(cuuint64_t)C, (cuuint64_t)R}, wdims[2] = {(cuuint64_t)C, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t xbox[2] = {64, (cuuint32_t)T::BM};
+  const cuuint32_t wbox[2] = {(cuuint32_t)T::KW, (cuuint32_t)T::BN};
+  int err = hop::make_map(&mx, x, 2, xdims, stride, xbox);
+  if (!err) err = hop::make_map(&mw, w, 2, wdims, stride, wbox, T::KW == 32);
+  if (err) return err;
+  static const cudaError_t e = cudaFuncSetAttribute(
+      ln_matmul_bf16<WM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_n = (N + T::BN - 1) / T::BN;
+  const int tiles = (R + T::BM - 1) / T::BM * tiles_n;
+  ln_matmul_bf16<WM><<<grid, THREADS_BF16, smem, st>>>(
+      mx, mw, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(wb), static_cast<bf16*>(out), R, C, N, eps, stages, tiles_n,
+      tiles);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ fp32 path
@@ -307,27 +427,22 @@ __global__ void __launch_bounds__(FTHREADS)
 
 }  // namespace
 
-// stats: fp32 [R, 2] scratch for the bf16 path (unused for fp32)
+// bf16: wm (1 or 2), stages, grid and smem come from ops/ln_matmul.plan;
+// fp32 ignores them.  wb may be null (no bias).
 extern "C" int ttv_ln_matmul(const void* x, const void* gamma, const void* beta,
-                             const void* w, const void* wb, void* out, void* stats, int R,
-                             int C, int N, float eps, int has_bias, int is_bf16,
+                             const void* w, const void* wb, void* out, int R, int C, int N,
+                             float eps, int is_bf16, int wm, int stages, int grid, int smem,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    ln_stats<<<(R + 7) / 8, 256, 0, st>>>(static_cast<const bf16*>(x),
-                                           static_cast<float2*>(stats), R, C, eps);
-    dim3 grid((R + BM - 1) / BM, (N + BN - 1) / BN);
-    ln_matmul_bf16<<<grid, THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const float2*>(stats),
-        static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        static_cast<const bf16*>(w), static_cast<const float*>(wb), static_cast<bf16*>(out),
-        R, C, N, has_bias);
-  } else {
-    dim3 grid((R + FM - 1) / FM, (N + FN - 1) / FN);
-    ln_matmul_f32<<<grid, FTHREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<const float*>(w),
-        static_cast<const float*>(wb), static_cast<float*>(out), R, C, N, eps, has_bias);
+    if (wm == 2) return launch_bf16<2>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
+    if (wm == 1) return launch_bf16<1>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
+    return (int)cudaErrorInvalidValue;
   }
+  dim3 fgrid((R + FM - 1) / FM, (N + FN - 1) / FN);
+  ln_matmul_f32<<<fgrid, FTHREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(w),
+      static_cast<const float*>(wb), static_cast<float*>(out), R, C, N, eps, wb != nullptr);
   return (int)cudaGetLastError();
 }

@@ -26,18 +26,19 @@ _BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # launcher name -> argtypes (pointers and the stream as c_void_p, ints as
 # c_int: ctypes would otherwise pass a pointer as a 32-bit int)
 _SIGNATURES = {
-    # q, k, v, o, B, S, H, D, scale, is_bf16, stream
-    "ttv_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, B, S, H, D, batch stride, row stride, scale, is_bf16, stream
+    "ttv_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P],
     # x, ws, N, S, C, G, rows_per_block, is_bf16, stream
     "ttv_groupnorm_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, ws, gamma, beta, y, N, S, C, G, eps, silu, blocks_per_row, is_bf16, stream
     "ttv_groupnorm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # x, gamma, beta, w, wb, out, stats, R, C, N, eps, has_bias, is_bf16, stream
-    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # x, gamma, beta, w, wb, out, R, C, N, eps, is_bf16, wm, stages, grid, smem, stream
+    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # g, mq, ms, nq, ns, step, mq2, ms2, nq2, ns2, nb, hyper (17 floats), stream
     "ttv_adam8bit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_F), _P],
 }
@@ -127,8 +128,11 @@ def library_path():
 
 
 def launch(name: str, *args) -> None:
-    """Call launcher ``name``; raise on a nonzero ``cudaGetLastError``."""
+    """Call launcher ``name``; raise on a nonzero ``cudaGetLastError`` (or,
+    from 1000 up, a failed ``cuTensorMapEncodeTiled``: 1000 + its CUresult)."""
     err = getattr(library(), name)(*args)
+    if err >= 1000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed (CUresult {err - 1000})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

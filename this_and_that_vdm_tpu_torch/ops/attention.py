@@ -30,6 +30,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     from . import flash_attention as fa
 
-    if fa.supports(q, k, v):
-        return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    if fa.supports(q, k, v):  # reads the qkv .chunk(3) views in place
+        return fa.flash_attention(q, k, v, scale)
     return _xla_attention(q, k, v, scale)

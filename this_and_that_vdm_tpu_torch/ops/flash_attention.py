@@ -2,11 +2,16 @@
 
 Counterpart of ``this_and_that_vdm_tpu/ops/flash_attention.py``.  The TPU
 kernel (``_kernel``, launched by ``_flash_call``) computes one fp32 [BQ, S]
-score tile per program in VMEM.  The CUDA kernel streams K/V in tiles of 64
-keys with an online softmax instead, because a block's shared memory holds
-227 KB, not megabytes; see the source's header for its design.  Bound at
-the slice's main site ``[28, 1536, 5, 64]`` bf16: 84.6 GFLOP against 110 MB
-of q/k/v/o, i.e. tensor-core bound.
+score tile per program in VMEM.  The CUDA kernel streams K/V tiles with an
+online softmax instead, because a block's shared memory holds 227 KB, not
+megabytes; in bf16 it runs on wgmma with TMA loads (the source's header has
+the design).  Bound at the slice's main site ``[28, 1536, 5, 64]`` bf16:
+84.6 GFLOP against 110 MB of q/k/v/o, i.e. tensor-core bound.
+
+The kernel reads q, k and v in place through their strides (the TMA
+descriptors are 4-D over (D, H, S, B)), so the ``.chunk(3)`` views of a
+fused qkv product need no copy; ``layout_error`` says which layouts it
+takes.
 
 ``flash_attention`` is the wrapper: on a CPU tensor it takes the plain
 version (``_plain``), on a CUDA tensor it launches the kernel or raises.
@@ -50,12 +55,41 @@ def supports(q, k, v) -> bool:
     return q.dtype in (torch.float32, torch.bfloat16)
 
 
+def _seq_strides(t):
+    """(batch stride, row stride) in elements; a size-1 axis gets the stride
+    of a contiguous tensor, which the kernel never steps along."""
+    b, s, h, d = t.shape
+    ss = t.stride(1) if s > 1 else h * d
+    return (t.stride(0) if b > 1 else s * ss), ss
+
+
+def layout_error(q, k, v):
+    """Why the kernel cannot read q, k, v as they lie, or None when it can:
+    equal [B, S, H, D] shapes and strides, unit stride inside a head, head
+    stride D, batch and row strides that are multiples of 8 elements (16
+    bytes in bf16, as TMA needs) and 16-byte-aligned data."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        return (f"q/k/v must be equal [B,S,H,D], got {tuple(q.shape)} {tuple(k.shape)} "
+                f"{tuple(v.shape)}")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        return f"q, k, v strides differ: {q.stride()} {k.stride()} {v.stride()}"
+    h, d = q.shape[2:]
+    if q.stride(3) != 1 or (h > 1 and q.stride(2) != d):
+        return f"needs unit stride inside a head and head stride D={d}, got {q.stride()}"
+    if any(st % 8 for st in _seq_strides(q)):
+        return f"batch and row strides must be multiples of 8 elements, got {q.stride()}"
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        return "q, k, v must be 16-byte aligned"
+    return None
+
+
 def _launch(q, k, v, scale: float):
     global launches
     b, s, h, d = q.shape
-    out = torch.empty_like(q)
+    sb, ss = _seq_strides(q)
+    out = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     _native.launch("ttv_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), b, s, h, d, float(scale),
+                   out.data_ptr(), b, s, h, d, sb, ss, float(scale),
                    int(q.dtype == torch.bfloat16), _native.stream_ptr(q))
     launches += 1
     return out
@@ -76,7 +110,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, scale: float):
-    """q, k, v: [B, S, H, D] -> [B, S, H, D]."""
+    """q, k, v: [B, S, H, D] (views too, see ``layout_error``) -> contiguous
+    [B, S, H, D]."""
     if q.device.type == "cpu":
         return _plain(q, k, v, scale)
     if q.device.type != "cuda":
@@ -91,12 +126,11 @@ def flash_attention(q, k, v, scale: float):
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtype {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    err = layout_error(q, k, v)
+    if err is not None:
+        raise ValueError(f"flash_attention: {err}")
     if _autograd.needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
     return _launch(q, k, v, scale)

@@ -2,12 +2,13 @@
 
 Counterpart of ``this_and_that_vdm_tpu/ops/ln_matmul.py`` (the Pallas
 ``_kernel`` launched by ``_ln_matmul_pallas_local``, held against
-``_reference``).  The kernel normalises each row block in fp32, rounds it to
-the input dtype in shared memory and multiplies it by streamed weight tiles
-with fp32 accumulation and the bias in the epilogue; the normalised tensor
-never reaches device memory.  See the source's header for the design.
-Bound: FLOPs — 26 GFLOP against ~110 MB at the qkv site (R=43008, C=320,
-N=960), 70 GFLOP at the level-3 GEGLU input (R=2688, C=1280, N=10240).
+``_reference``).  The kernel normalises each row block once in fp32, rounds
+it to the input dtype in shared memory and multiplies it by weight tiles
+streamed through a TMA ring on wgmma, with fp32 accumulation and the bias in
+the epilogue; the normalised tensor never reaches device memory.  See the
+source's header for the design; ``plan`` picks its tiles.  Bound at the qkv
+site (R=43008, C=320, N=960): 26 GFLOP against ~110 MB, about even; 70
+GFLOP at the level-3 GEGLU input (R=2688, C=1280, N=10240), FLOPs.
 
 ``ln_matmul`` is the wrapper used at every LN -> projection site of the
 port's transformers: on a CPU tensor it takes the plain version
@@ -20,7 +21,8 @@ Weights follow ``nn.Linear``: ``w`` is [N, C] (out, in), ``wb`` is [N].
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +31,56 @@ from . import _autograd, _native
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-_MAX_C = 2048
+_MAX_C = 2048  # fp32
+_MAX_C_BF16 = 1280  # a warp holds a row in registers, 5 pieces of 8 a lane (UNITS)
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+_MAX_STAGES = 8
+_SMS = 132  # streaming multiprocessors of an H100 SXM (the wrapper asks the card)
+
+
+class Plan(NamedTuple):
+    """Tiles of the bf16 kernel: ``wm`` = 2 gives 128-row x 128-column tiles
+    (one warpgroup per 64 rows), ``wm`` = 1 gives 64 x 256 (one per 128
+    columns); ``stages`` of the weight ring, each [bn, kw] (kw = 64 columns
+    at 128-byte swizzle, 32 at 64-byte); ``smem`` bytes; ``tiles``
+    (row block, column tile) pairs, ``tiles_n`` per row block, cut into
+    ``grid`` contiguous ranges, one per block."""
+    wm: int
+    bm: int
+    bn: int
+    kw: int
+    stages: int
+    smem: int
+    tiles_n: int
+    tiles: int
+    grid: int
+
+
+def plan(r: int, c: int, n: int, sms: int = _SMS) -> Plan:
+    """The largest row block whose normalised rows ([bm, C] bf16, in 64-column
+    blocks) fit in shared memory beside at least two weight stages; raises
+    ValueError when none does.  Mirrors the kernel's layout (``LnTiles`` and
+    ``ln_smem_bytes`` in csrc/ln_matmul.cu): 1024 bytes of alignment slack,
+    the rows, the ring, 8 bytes a barrier (two per stage, two for the rows)."""
+    kb = -(-c // 64)
+    for wm in (2, 1) if c <= _MAX_C_BF16 else ():
+        bm, bn, kw = 64 * wm, 256 // wm, 32 * wm
+        fixed = 1024 + kb * bm * 128 + 16
+        stage = bn * kw * 2 + 16
+        stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+        if stages >= 2:
+            tiles_n = -(-n // bn)
+            tiles = -(-r // bm) * tiles_n
+            return Plan(wm, bm, bn, kw, stages, fixed + stages * stage, tiles_n, tiles,
+                        min(tiles, sms))
+    raise ValueError(f"ln_matmul: bf16 needs C <= {_MAX_C_BF16} (the normalised rows live "
+                     f"in shared memory and a row in one warp's registers), got C={c}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def layer_norm_fp32(x, weight, bias, eps: float = 1e-5):
@@ -55,11 +106,11 @@ def _launch(x2, scale, bias, w, wb, eps):
     r, c = x2.shape
     n = w.shape[0]
     out = torch.empty((r, n), device=x2.device, dtype=x2.dtype)
-    stats = torch.empty((r, 2), device=x2.device, dtype=torch.float32)  # (mean, rstd)
+    p = plan(r, c, n, _sm_count(x2.device.index)) if x2.dtype == torch.bfloat16 else None
+    tiles = (0, 0, 0, 0) if p is None else (p.wm, p.stages, p.grid, p.smem)
     _native.launch("ttv_ln_matmul", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                    w.data_ptr(), 0 if wb is None else wb.data_ptr(), out.data_ptr(),
-                   stats.data_ptr(), r, c, n, float(eps), int(wb is not None),
-                   int(x2.dtype == torch.bfloat16), _native.stream_ptr(x2))
+                   r, c, n, float(eps), int(p is not None), *tiles, _native.stream_ptr(x2))
     launches += 1
     return out
 
@@ -98,13 +149,16 @@ def ln_matmul(x, scale, bias, w, wb: Optional[torch.Tensor] = None, eps: float =
     if not x.is_contiguous():
         raise ValueError("ln_matmul: x must be contiguous")
     x2 = x.view(-1, c)
+    if x.dtype == torch.bfloat16 and (n % 8 or c > _MAX_C_BF16):  # what ``plan`` fits
+        raise ValueError(f"ln_matmul: bf16 needs N % 8 == 0 and C <= {_MAX_C_BF16}, "
+                         f"got C={c} N={n}")
     w = w.to(x.dtype).contiguous()
-    if x2.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("ln_matmul: x and w must be 16-byte aligned")
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     if wb is not None:
         wb = wb.to(device=x.device, dtype=torch.float32).contiguous()
+    if any(t.data_ptr() % 16 for t in (x2, w, scale, bias) + (() if wb is None else (wb,))):
+        raise ValueError("ln_matmul: x, w, scale, bias and wb must be 16-byte aligned")
     if _autograd.needs_grad(x2, scale, bias, w, wb):
         out = _LnMatmul.apply(x2, scale, bias, w, wb, eps)
     else:
