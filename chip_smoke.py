@@ -9,7 +9,8 @@ Phases (any failure raises and exits nonzero):
                  (the comparisons below are against full-precision plain math)
   2. build       nvcc builds the Hopper kernels from csrc/ into build/; the
                  SASS of the bf16 K1 and K3 kernels must show wgmma (HGMMA)
-                 and TMA loads (UTMALDG) and no mma.sync (HMMA)
+                 and TMA loads (UTMALDG) and no mma.sync (HMMA), that of the
+                 fp32 K1 and K3 kernels tensor-core products (HMMA or HGMMA)
   3. kernels     each kernel against its plain PyTorch version on the card, at
                  the slices' shapes, in bf16 and fp32 (K4: fp32 steps, uint8
                  codes), with its time beside the plain version's, the time of
@@ -17,7 +18,9 @@ Phases (any failure raises and exits nonzero):
                  one, and the least time the card could take (bound).  K1 and
                  K3 bf16 at every shape of the denoise step: K1 contiguous and
                  as the .chunk(3) views of a fused qkv product, K3 at every
-                 (R, C, N) of its LN -> projection sites.  Then the backward
+                 (R, C, N) of its LN -> projection sites; K1 and K3 fp32 at
+                 the shapes of both and at those of the batch-1 train
+                 steps.  Then the backward
                  of K1-K3 against autograd of the plain versions
   4. denoiser    one full-width ControlNet + UNet forward (CFG batch 2, 14
                  frames of 32x48 latents, bf16) with the kernels and through
@@ -34,7 +37,7 @@ Phases (any failure raises and exits nonzero):
                  of synthetic data into a temporary output directory; the
                  last step runs under torch.profiler (device time by kernel)
   7. VL train    the same on config/train_image2video.yaml (the 1.525 B-param
-                 UNet trains in fp32), 2 steps
+                 UNet trains in fp32), 3 steps, the last one profiled
 
 Prints, before the last line, one JSON line with each kernel's launches
 (summed over the phases 5-7, each counted from zero), error, times and bound,
@@ -98,24 +101,34 @@ INFERENCE_KERNELS = ("flash_attention", "groupnorm", "ln_matmul")  # K4 runs in 
 # the one the kernels line reports.  K3: (R, C, N, bias) of every LN ->
 # projection site: levels 1-3 and the level-4 mid block, N = C (the
 # cross-attention q), 3C (the fused qkv), 8C (the GEGLU input, with bias).
+# fp32 adds the shapes of the batch-1 train steps (14 frames: half the rows):
+# K1 at S = 1536 and 384, K3 at each level's N = C, 3C, 8C and the VL mid
+# block's qkv (R = 336).
 K1_SHAPES = {torch.bfloat16: [((28, 1536, 5, 64), True), ((28, 1536, 5, 64), False),
                               ((28, 384, 10, 64), True), ((28, 384, 10, 64), False),
                               ((4, 1000, 5, 64), False)],
              torch.float32: [((28, 1536, 5, 64), False), ((28, 384, 10, 64), False),
-                             ((4, 1000, 5, 64), False)]}
+                             ((4, 1000, 5, 64), False), ((14, 1536, 5, 64), True),
+                             ((14, 384, 10, 64), True)]}
 _K3_ROWS = ((43008, 320), (10752, 640), (2688, 1280), (672, 1280))
+_K3_TRAIN_ROWS = ((21504, 320), (5376, 640), (1344, 1280))
 K3_SHAPES = {torch.bfloat16: [(r, c, n, n == 8 * c) for r, c in _K3_ROWS
                               for n in (3 * c, c, 8 * c)],
              torch.float32: [(43008, 320, 960, False), (43008, 320, 2560, True),
-                             (2688, 1280, 10240, True)]}
+                             (2688, 1280, 10240, True)]
+             + [(r, c, n, n == 8 * c) for r, c in _K3_TRAIN_ROWS for n in (c, 3 * c, 8 * c)]
+             + [(336, 1280, 3840, False)]}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
-# by type (bf16 on the tensor cores, fp32 on the CUDA cores)
+# by type.  bf16 runs on the tensor cores at 989 TFLOP/s.  The fp32 kernels
+# keep fp32 accuracy on the tensor cores with three TF32 products for every
+# product (3xTF32), so their peak is 495 / 3 = 165 TFLOP/s of fp32 work, not
+# the CUDA cores' 67 TFLOP/s (which a 3xTF32 kernel can exceed).
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 # (mode, config, steps, profile the last step)
 TRAIN_CONFIGS = (("vgl", "config/train_image2video_gesturenet.yaml", 3, True),
-                 ("vl", "config/train_image2video.yaml", 2, False))
+                 ("vl", "config/train_image2video.yaml", 3, True))
 
 
 def log(*args):
@@ -175,38 +188,51 @@ def phase_build():
     sass_check(_native.library_path())
 
 
-# kernels that must run on wgmma (HGMMA) with TMA loads (UTMALDG) and no mma.sync (HMMA)
+# kernels that must run on wgmma (HGMMA) with TMA loads (UTMALDG) and no
+# mma.sync (HMMA), and kernels that must run on the tensor cores (HMMA or
+# HGMMA); each name is matched as a template (name + "I" in the mangled
+# name), so the streamed K3's row pass, ln_matmul_f32_rows, is not a product
 HOPPER_KERNELS = ("flash_bf16", "ln_matmul_bf16")
+TENSOR_CORE_KERNELS = ("flash_f32", "ln_matmul_f32")
 
 
 def sass_check(lib):
-    """Count the SASS opcodes of the bf16 K1 and K3 kernels in the built
-    library; raise if one lacks HGMMA or UTMALDG or still has HMMA."""
+    """Count the SASS opcodes of the K1 and K3 kernels in the built
+    library; raise if a bf16 one lacks HGMMA or UTMALDG or still has HMMA,
+    or an fp32 one has neither HMMA nor HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise RuntimeError("SASS check: cuobjdump not found on PATH or in /usr/local/cuda/bin")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts, cur = {}, None
+    kinds = HOPPER_KERNELS + TENSOR_CORE_KERNELS
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            cur = name if any(k in name for k in HOPPER_KERNELS) else None
+            cur = name if any(k + "I" in name for k in kinds) else None
             if cur:
                 counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "HMMA"), 0)
         elif cur:
             for op in counts[cur]:
                 counts[cur][op] += f" {op}." in line or f" {op} " in line
-    found = {k for k in HOPPER_KERNELS if any(k in n for n in counts)}
-    bad = [n for n, c in counts.items() if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]]
-    def short(name):  # flash_bf16<64>, ln_matmul_bf16<2> from the mangled name
-        m = re.search(r"(" + "|".join(HOPPER_KERNELS) + r")ILi(\d+)E", name)
-        return f"{m.group(1)}<{m.group(2)}>" if m else name
 
-    log("[build] SASS of the wgmma kernels: "
+    def bad(name, c):
+        if any(k + "I" in name for k in HOPPER_KERNELS):
+            return not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]
+        return not (c["HMMA"] or c["HGMMA"])
+
+    missing = sorted(k for k in kinds if not any(k + "I" in n for n in counts))
+    failed = [n for n, c in counts.items() if bad(n, c)]
+
+    def short(name):  # flash_bf16<64>, ln_matmul_f32<128,128,4,4,32,3,0> from the mangled name
+        m = re.search(r"(" + "|".join(kinds) + r")I", name)
+        return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', name[m.end():]))}>"
+
+    log("[build] SASS of the K1 / K3 kernels: "
         + "; ".join(f"{short(n)} {c}" for n, c in counts.items()))
-    if bad or found != set(HOPPER_KERNELS):
-        raise RuntimeError(f"SASS check failed: {bad or sorted(set(HOPPER_KERNELS) - found)}")
+    if failed or missing:
+        raise RuntimeError(f"SASS check failed: {failed or missing}")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -647,24 +673,31 @@ def _same(snap, tensors):
     return all(torch.equal(snap[k], tensors[k].detach().cpu()) for k in snap)
 
 
-# kernel-name pieces of each kernel of the port, by dtype where it matters
+# kernel-name pieces of each kernel of the port, by dtype where it matters;
+# "ln_matmul fp32" includes the row pass of its streamed tiles, also shown
+# on its own (so the products' launches are the difference)
 KERNEL_NAMES = {"flash_attention fp32": ("flash_f32",), "flash_attention bf16": ("flash_bf16",),
                 "groupnorm": ("gn_stats", "gn_apply"), "ln_matmul fp32": ("ln_matmul_f32",),
+                "ln_matmul fp32 row pass": ("ln_matmul_f32_rows",),
                 "ln_matmul bf16": ("ln_matmul_bf16",),
                 "adam8bit": ("adam8bit_kernel",)}
 
 
 def device_time(prof):
     """Device milliseconds of one profiled step: in total, by kernel of the
-    port, and the ten largest kernels by name."""
-    by_name = {}
+    port (with its launches in the step, by kernel name), and the ten
+    largest kernels by name."""
+    by_name, calls = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            calls[e.key] = calls.get(e.key, 0) + e.count
     ours = {k: sum(t for n, t in by_name.items() if any(p in n for p in pieces))
             for k, pieces in KERNEL_NAMES.items()}
+    ours_calls = {k: sum(c for n, c in calls.items() if any(p in n for p in pieces))
+                  for k, pieces in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(total_ms=sum(by_name.values()), kernels_ms=ours,
+    return dict(total_ms=sum(by_name.values()), kernels_ms=ours, kernel_launches=ours_calls,
                 top_ms=[(n[:90], t) for n, t in top])
 
 
@@ -769,6 +802,8 @@ def phase_train(mode, config, steps, profile, smi):
         log(f"[train {mode}] profiled step {steps}: device {prof['total_ms']:.1f} ms of "
             f"{step_s[-1] * 1e3:.1f} ms wall; the port's kernels (ms) "
             + ", ".join(f"{k} {v:.2f}" for k, v in prof["kernels_ms"].items())
+            + "; their launches in the step (by kernel name) "
+            + ", ".join(f"{k} {v}" for k, v in prof["kernel_launches"].items())
             + "; largest: " + "; ".join(f"{n} {t:.2f}" for n, t in prof["top_ms"]))
     log(f"[train {mode}] {steps} steps, seconds per step {[round(t, 4) for t in step_s]} "
         f"(timed steps >= 2: {[round(t, 4) for t in timed]}); peak memory "

@@ -56,6 +56,38 @@ def test_ln_matmul_plan_refuses_rows_that_do_not_fit():
             ln_matmul.plan(10, c, 8)
 
 
+# (R, C) of the fp32 LN -> projection sites: the train steps at batch 1
+# (14 frames) and the CFG-2 rows, with the VL mid block (R = 336)
+_F32_SITES = [(21504, 320), (5376, 640), (1344, 1280), (336, 1280), (43008, 320),
+              (10752, 640), (2688, 1280)]
+
+
+@pytest.mark.parametrize("r,c", _F32_SITES)
+def test_ln_matmul_plan_f32_fits_every_site(r, c):
+    for n in (c, 3 * c, 8 * c):
+        p = ln_matmul.plan_f32(r, c, n)
+        assert p.smem <= ln_matmul.SMEM_LIMIT == 232448
+        # rows past R and columns past N are masked, never left out
+        assert p.tiles_n * 128 >= n > (p.tiles_n - 1) * 128
+        assert p.tiles == -(-r // 128) * p.tiles_n and p.grid == min(p.tiles, 132)
+        ranges = _block_ranges(p)
+        assert ranges[0][0] == 0 and ranges[-1][1] == p.tiles
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+        # the kernel's layout: resident rows at C rounded up to 32, + 8
+        # floats (8 mod 32), beside 3 weight stages [128, 40]; streamed: 4
+        # stages of rows and weights [256, 40]
+        assert p.lda % 32 == 8 and p.lda >= c + 8
+        assert p.stream == (c > 320)
+        assert p.smem == (4 * 4 * 256 * 40 if p.stream else 4 * (128 * p.lda + 3 * 128 * 40))
+
+
+@pytest.mark.parametrize("c,stream", [(8, False), (72, False), (320, False), (352, True),
+                                      (1288, True), (2048, True)])
+def test_ln_matmul_plan_f32_takes_every_c_to_2048(c, stream):
+    p = ln_matmul.plan_f32(1000, c, 17)
+    assert p.stream == stream and p.smem <= ln_matmul.SMEM_LIMIT and p.lda - 8 >= c
+
+
 def _qkv_views(b, s, h, d, dtype=torch.bfloat16):
     """q, k, v as the transformers make them: .chunk(3) of the fused
     [B, S, 3C] qkv product, each reshaped to [B, S, H, D]."""

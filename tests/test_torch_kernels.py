@@ -71,6 +71,27 @@ def test_flash_attention_kernel_reads_qkv_views(dev, dtype, shape):
     assert _rel(got, want) < BOUND[dtype]
 
 
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "qkv_views"])
+@pytest.mark.parametrize("shape", [(14, 1536, 5, 64), (14, 384, 10, 64), (3, 1000, 5, 64),
+                                   (2, 333, 3, 128), (1, 77, 2, 128)])
+def test_flash_attention_fp32_train_shapes(dev, shape, views):
+    """The fp32 path (3xTF32 on mma.sync) at the batch-1 train step's shapes,
+    ragged S (a partial last key tile and query block) and D = 128, both as
+    contiguous tensors and as the .chunk(3) views of a fused qkv product."""
+    b, s, h, d = shape
+    if views:
+        qkv = _randn((b, s, 3 * h * d), torch.float32, dev, 0)
+        q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (_randn(shape, torch.float32, dev, i) for i in range(3))
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, d ** -0.5)
+    want = flash_attention._plain(q.contiguous(), k.contiguous(), v.contiguous(), d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1 and got.is_contiguous()
+    assert _rel(got, want) < BOUND[torch.float32]
+
+
 def test_flash_attention_refuses_views_it_cannot_read(dev):
     x = torch.zeros((2, 10, 384, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head stride"):
@@ -123,6 +144,26 @@ def test_ln_matmul_kernel(dev, dtype, r, c, n, bias):
     torch.cuda.synchronize()
     assert ln_matmul.launches == 1
     assert _rel(got, want) < BOUND[dtype]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("r,c,n", [(21504, 320, 960), (21504, 320, 2560), (5376, 640, 1920),
+                                   (1344, 1280, 10240), (336, 1280, 3840), (1000, 2048, 96),
+                                   (77, 72, 41)])
+def test_ln_matmul_fp32_train_shapes(dev, r, c, n, bias):
+    """The fp32 path (3xTF32 on mma.sync) at the batch-1 train step's sites:
+    rows resident in shared memory (C <= 320) and streamed (C = 640, 1280,
+    2048), a C that is not a multiple of 32 and an odd N."""
+    x = _randn((r, c), torch.float32, dev, 0) * 2 + 0.5
+    s, b = 1 + 0.1 * _randn((c,), torch.float32, dev, 1), 0.1 * _randn((c,), torch.float32, dev, 2)
+    w = _randn((n, c), torch.float32, dev, 3) / c ** 0.5
+    wb = _randn((n,), torch.float32, dev, 4) if bias else None
+    ops.reset_launch_counts()
+    got = ln_matmul.ln_matmul(x, s, b, w, wb)
+    want = ln_matmul._reference(x, s, b, w, wb, 1e-5)
+    torch.cuda.synchronize()
+    assert ln_matmul.launches == 1
+    assert _rel(got, want) < BOUND[torch.float32]
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

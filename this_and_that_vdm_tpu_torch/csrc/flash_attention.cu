@@ -34,17 +34,42 @@
 // zero-fills (the 4-D map keeps it inside its batch); keys past S are masked
 // to -inf and queries past S are not written, so any S works.
 //
-// fp32: a simpler kernel with plain FMAs through shared memory, so fp32 stays
-// full fp32 (the tensor cores' tf32 would keep ~3 digits); it is the training
-// path's comparison kernel, not the main path.
+// fp32 (the training path: the trainable GestureNet and the VL UNet are
+// fp32): both products on the tensor cores in 3xTF32 (hopper.cuh), so the
+// result keeps fp32 accuracy (one TF32 product keeps ~3 digits; three keep
+// ~2^-21).  wgmma takes TF32 operands from shared memory only K-major, which
+// fits K in Q K^T but not V in P V (V is [keys, D], MN-major; the transpose
+// bit exists only for 16-bit types), and each operand needs its hi / lo
+// halves.  So this path is built on mma.sync m16n8k8 with the split done in
+// registers as each fragment is loaded, fed by a cp.async ring:
+//   - 256 threads, 128 query rows a block (16 a warp), BK = 64 keys a tile;
+//     Q is copied once into shared memory, K and V stream through a ring of
+//     two stages with cp.async, the load of tile j + 1 in flight while tile
+//     j computes; at D = 64 two blocks share an SM;
+//   - S = Q K^T: the fragments are read 8 bytes a lane, because the k index
+//     of the product is mapped to head columns (2t, 2t + 1) for both Q and K;
+//     each of the three products runs over all 8 key blocks before the
+//     next, so consecutive mma.sync are independent;
+//   - softmax: online, in base 2 (ex2.approx with the scale folded in), on
+//     the score accumulators in registers;
+//   - O += P V: the score accumulators are the A fragments as they lie,
+//     with the product's k index mapped to keys (2t, 2t + 1) -- the order of
+//     a sum over keys is free -- and V read with the same map; the O
+//     accumulator stays in registers for the whole key loop.
+//   Row strides of D + 8 (Q, K) and D + 4 (V) floats make every fragment
+//   load free of bank conflicts.  Keys past S are zero-filled by cp.async
+//   and masked to -inf; queries past S are zero and not written.
 //
 // Numerics (both): scores and the softmax statistics are fp32; P is rounded
 // to V's dtype before P@V, which accumulates in fp32.
 //
-// Bound at the slice's shapes (S=1536, D=64, B*H=140, bf16): 4*B*H*S^2*D =
-// 84.6 GFLOP against 2*4*B*S*H*D = 110 MB, i.e. tensor-core bound; the
-// exp2 of every score (330 M on the multi-function units) costs about as
-// much again, which is why the softmax is overlapped with the products.
+// Bound at the slice's shapes (S=1536, D=64, B*H=140): 4*B*H*S^2*D =
+// 84.6 GFLOP against 2*4*B*S*H*D = 110 MB in bf16, i.e. tensor-core bound;
+// the exp2 of every score (330 M on the multi-function units) costs about as
+// much again, which is why the bf16 path overlaps the softmax with the
+// products.  In fp32 the three TF32 products run at a third of 495 TFLOP/s,
+// and the hi / lo splits (a few ALU operations per fragment element) compete
+// with the products for issue slots.
 #include <math.h>
 #include <stdint.h>
 
@@ -276,118 +301,220 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // ----------------------------------------------------------- fp32 path
 
-constexpr int FBQ = 64, FBK = 64, FTHREADS = 128;  // query rows, keys a tile, threads
+constexpr int FBQ = 128, FBK = 64, FTHREADS = 256;  // query rows, keys a tile, threads
 
+// K/V ring depth 2: at D = 64 two blocks fit an SM (106 KB each), which
+// measured faster than one block with a deeper ring
 template <int D>
-struct F32Layout {
-  static constexpr int LDT = D + 4;   // Q/K/V row stride
-  static constexpr int LDS = FBK + 4;  // score / P row stride
-  static constexpr size_t bytes =
-      sizeof(float) * (3 * FBQ * LDT + FBQ * LDS + FBQ * LDT + 2 * FBQ);
+struct F32Tiles {
+  static constexpr int STAGES = 2, MINB = D == 64 ? 2 : 1;  // MINB: blocks an SM holds
+  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 4;  // row strides in floats
+  static constexpr int Q_FLOATS = FBQ * LDQ;
+  static constexpr int STAGE_FLOATS = FBK * (LDK + LDV);  // K then V
+  static constexpr int SMEM = 4 * (Q_FLOATS + STAGES * STAGE_FLOATS);
 };
 
+// the A fragment (hi, lo) of rows g, g + 8 of a 16-row Q slice at k step kk
+template <int LDQ>
+__device__ __forceinline__ void q_frag(const float* qw, int kk, int g, int t, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(qw + g * LDQ + 8 * kk + 2 * t);
+  const float2 x1 = *reinterpret_cast<const float2*>(qw + (g + 8) * LDQ + 8 * kk + 2 * t);
+  hop::split_tf32(x0.x, ah[0], al[0]);
+  hop::split_tf32(x1.x, ah[1], al[1]);
+  hop::split_tf32(x0.y, ah[2], al[2]);
+  hop::split_tf32(x1.y, ah[3], al[3]);
+}
+
+// d[n0 + n] += a * b[n] for n < NB in 3xTF32, each of the three products
+// over every n before the next, so that consecutive mma.sync are independent
+template <int NB, int ND>
+__device__ __forceinline__ void mma3_row(float (&d)[ND][4], int n0, const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const uint32_t (&bh)[NB][2],
+                                         const uint32_t (&bl)[NB][2]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) hop::mma_tf32(d[n0 + n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) hop::mma_tf32(d[n0 + n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) hop::mma_tf32(d[n0 + n], ah, bh[n][0], bh[n][1]);
+}
+
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, F32Tiles<D>::MINB)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int S, int H,
               long long sb, long long ss, float scale) {
-  using L = F32Layout<D>;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + FBQ * L::LDT;
-  float* sV = sK + FBK * L::LDT;
-  float* sP = sV + FBK * L::LDT;  // scores, then probabilities
-  float* sO = sP + FBQ * L::LDS;
-  float* sM = sO + FBQ * L::LDT;
-  float* sL = sM + FBQ;
+  using T = F32Tiles<D>;
+  constexpr int LDQ = T::LDQ, LDK = T::LDK, LDV = T::LDV, STAGES = T::STAGES;
+  constexpr int CPR = D / 4;    // 16-byte pieces of a row
+  constexpr int NB = FBK / 8;   // key blocks of 8 in a tile
+  constexpr int DB = D / 8;     // column blocks of 8 in a row
+  constexpr int VB = DB < 8 ? DB : 8;  // V column blocks split at once
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);  // [FBQ][LDQ]
+  float* sKV = sQ + T::Q_FLOATS;                  // stage s: K [FBK][LDK], V [FBK][LDV]
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * FBQ;
-  const size_t row = (size_t)ss, orow = (size_t)H * D;
-  const size_t base = (size_t)b * sb + (size_t)h * D, obase = ((size_t)b * S * H + h) * D;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * FBQ;
+  const int nk = (S + FBK - 1) / FBK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)b * sb + (size_t)h * D;  // row s of q, k, v at base + s * ss
 
-  for (int i = tid; i < FBQ * D; i += FTHREADS) {
-    const int r = i / D, c = i % D, s = q0 + r;
-    sQ[r * L::LDT + c] = s < S ? q[base + s * row + c] : 0.f;
-    sO[r * L::LDT + c] = 0.f;
+  for (int i = tid; i < FBQ * CPR; i += FTHREADS) {
+    const int r = i / CPR, c = (i % CPR) * 4, s = q0 + r;
+    hop::cp_async16(sQ + r * LDQ + c, q + base + (size_t)min(s, S - 1) * ss + c, s < S);
   }
-  for (int i = tid; i < FBQ; i += FTHREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
+  auto load_kv = [&](int j) {
+    float* sK = sKV + (j % STAGES) * T::STAGE_FLOATS;
+    float* sV = sK + FBK * LDK;
+    for (int i = tid; i < FBK * CPR; i += FTHREADS) {
+      const int r = i / CPR, c = (i % CPR) * 4, s = j * FBK + r;
+      const size_t off = base + (size_t)min(s, S - 1) * ss + c;
+      hop::cp_async16(sK + r * LDK + c, k + off, s < S);
+      hop::cp_async16(sV + r * LDV + c, v + off, s < S);
+    }
+  };
+  // group 0 holds Q and tile 0; group i tile i
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < nk) load_kv(j);
+    hop::cp_async_commit();
   }
-  // lanes 2r, 2r+1 of a warp share query row r: 32 keys and D/2 outputs each
-  const int r = (tid >> 5) * 16 + (lane >> 1), half = lane & 1;
-  for (int k0 = 0; k0 < S; k0 += FBK) {
-    __syncthreads();
-    for (int i = tid; i < FBK * D; i += FTHREADS) {
-      const int rr = i / D, c = i % D, s = k0 + rr;
-      sK[rr * L::LDT + c] = s < S ? k[base + s * row + c] : 0.f;
-      sV[rr * L::LDT + c] = s < S ? v[base + s * row + c] : 0.f;
+
+  const float sl2 = scale * 1.4426950408889634f;  // softmax in base 2
+  const float* qw = sQ + warp * 16 * LDQ;          // this warp's 16 query rows
+  float oacc[DB][4];  // [column block n][element]: rows g, g + 8; columns 8n + 2t, +1
+  float sc[NB][4];    // [key block n][element]: rows g, g + 8; keys 8n + 2t, +1
+#pragma unroll
+  for (int n = 0; n < DB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  for (int j = 0; j < nk; ++j) {
+    hop::cp_async_wait<STAGES - 2>();  // tile j (and Q) landed for this thread...
+    __syncthreads();                   // ...and for every thread; stage (j - 1) is free
+    if (j + STAGES - 1 < nk) load_kv(j + STAGES - 1);
+    hop::cp_async_commit();
+    const float* sK = sKV + (j % STAGES) * T::STAGE_FLOATS;
+    const float* sV = sK + FBK * LDK;
+
+    // S = Q K^T, k step kk over head columns 8kk + (2t, 2t + 1)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DB; ++kk) {
+      uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+      q_frag<LDQ>(qw, kk, g, t, ah, al);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(sK + (8 * n + g) * LDK + 8 * kk + 2 * t);
+        hop::split_tf32(y.x, bh[n][0], bl[n][0]);
+        hop::split_tf32(y.y, bh[n][1], bl[n][1]);
+      }
+      mma3_row<NB>(sc, 0, ah, al, bh, bl);
     }
-    __syncthreads();
-    float* prow = sP + r * L::LDS + half * (FBK / 2);
-    float mx = -INFINITY;
-    for (int j = 0; j < FBK / 2; ++j) {
-      const int key = half * (FBK / 2) + j;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(sQ[r * L::LDT + d], sK[key * L::LDT + d], acc);
-      const float x = k0 + key < S ? acc * scale : -INFINITY;
-      prow[j] = x;
-      mx = fmaxf(mx, x);
+
+    // online softmax of the tile: sc -> 2^(scaled score - row max)
+    if ((j + 1) * FBK > S) {  // the last tile runs past S
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * FBK + 8 * n + 2 * t + (e & 1) >= S) sc[n][e] = -INFINITY;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = sM[r];
-    const float m_new = fmaxf(m_old, mx);
-    const float alpha = expf(m_old - m_new);
-    float sum = 0.f;
-    for (int j = 0; j < FBK / 2; ++j) {
-      prow[j] = expf(prow[j] - m_new);
-      sum += prow[j];
+    float mx[2] = {m[0], m[1]}, ms[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = hop::ex2((m[r] - mx[r]) * sl2);  // finite mx: every tile holds a key < S
+      m[r] = mx[r];
+      ms[r] = mx[r] * sl2;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    __syncwarp();
-    if (half == 0) {
-      sM[r] = m_new;
-      sL[r] = sL[r] * alpha + sum;
-    }
-    const float* pr = sP + r * L::LDS;
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d) {
-      float acc = sO[r * L::LDT + d] * alpha;
-#pragma unroll 8
-      for (int j = 0; j < FBK; ++j) acc = fmaf(pr[j], sV[j * L::LDT + d], acc);
-      sO[r * L::LDT + d] = acc;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = hop::ex2(fmaf(sc[n][e], sl2, -ms[e >> 1]));
+        sum[e >> 1] += sc[n][e];
+      }
+    // per-lane partial row sums: the quad's are added once, at the end
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+#pragma unroll
+    for (int n = 0; n < DB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
+
+    // O += P V, k step kk over keys 8kk + (2t, 2t + 1): the A fragment is
+    // (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1) = sc[kk][0, 2, 1, 3]
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      uint32_t ph[4], pl[4];
+      hop::split_tf32(sc[kk][0], ph[0], pl[0]);
+      hop::split_tf32(sc[kk][2], ph[1], pl[1]);
+      hop::split_tf32(sc[kk][1], ph[2], pl[2]);
+      hop::split_tf32(sc[kk][3], ph[3], pl[3]);
+      const float* v0 = sV + (8 * kk + 2 * t) * LDV + g;
+#pragma unroll
+      for (int n0 = 0; n0 < DB; n0 += VB) {
+        uint32_t bh[VB][2], bl[VB][2];
+#pragma unroll
+        for (int n = 0; n < VB; ++n) {
+          hop::split_tf32(v0[8 * (n0 + n)], bh[n][0], bl[n][0]);
+          hop::split_tf32(v0[LDV + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+        }
+        mma3_row<VB>(oacc, n0, ph, pl, bh, bl);
+      }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < FBQ * D; i += FTHREADS) {
-    const int rr = i / D, c = i % D, s = q0 + rr;
-    if (s < S) o[obase + s * orow + c] = sO[rr * L::LDT + c] / sL[rr];
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  const size_t orow = (size_t)H * D;
+  float* ob = o + ((size_t)b * S * H + h) * D + 2 * t;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row < S)
+#pragma unroll
+      for (int n = 0; n < DB; ++n)
+        *reinterpret_cast<float2*>(ob + row * orow + 8 * n) =
+            make_float2(oacc[n][2 * hh] * inv[hh], oacc[n][2 * hh + 1] * inv[hh]);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                long long sb, long long ss, float scale, cudaStream_t st) {
-  constexpr size_t bytes = F32Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = F32Tiles<D>::SMEM;
+  static const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((S + FBQ - 1) / FBQ, B * H);
-  flash_f32<D><<<grid, FTHREADS, bytes, st>>>(static_cast<const float*>(q),
-                                             static_cast<const float*>(k),
-                                             static_cast<const float*>(v),
-                                             static_cast<float*>(o), S, H, sb, ss, scale);
+  flash_f32<D><<<grid, FTHREADS, smem, st>>>(static_cast<const float*>(q),
+                                            static_cast<const float*>(k),
+                                            static_cast<const float*>(v),
+                                            static_cast<float*>(o), S, H, sb, ss, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v: [B, S, H, D] with batch stride sb and row stride ss (elements),
-// head stride D, unit stride; bf16 also needs 16-byte-aligned bases and sb,
-// ss multiples of 8 (the wrapper checks).  o: contiguous [B, S, H, D].
+// head stride D, unit stride, 16-byte-aligned bases and sb, ss multiples of
+// 8 (the wrapper checks; fp32 cp.async needs multiples of 4).  o: contiguous [B, S, H, D].
 extern "C" int ttv_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int D, long long sb, long long ss,
                                    float scale, int is_bf16, void* stream) {

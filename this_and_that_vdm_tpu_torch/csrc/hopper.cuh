@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels K1 and K3, in inline
-// PTX: mbarriers, TMA tensor maps and loads, wgmma descriptors and products.
+// Hopper (sm_90a) building blocks of the kernels K1 and K3, in inline PTX:
+// for bf16, mbarriers, TMA tensor maps and loads, wgmma descriptors and
+// products; for fp32, cp.async copies and the 3xTF32 product on mma.sync
+// (at the end of the file).
 //
 // Agreement that the numbers depend on (a mismatch gives wrong values, not a
 // fault): a tile is loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B and a box
@@ -313,6 +315,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// ------------------------------------------------- fp32: cp.async, 3xTF32
+
+// 16 bytes global -> shared without registers (cp.async, cached in L2 only);
+// with pred false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An fp32 value as hi + lo for 3xTF32.  hi = x rounded to nearest TF32,
+// ties away from zero: the result of cvt.rna.tf32.f32 for finite x, in two
+// integer operations (cvt.rna takes about five on sm_90).  lo = x - hi,
+// exact in fp32; the tensor core reads only its upper 19 bits (TF32), which
+// drops at most 2^-10 |lo| <= 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D[16 x 8] += A[16 x 8] * B[8 x 8] in TF32 on the tensor cores (mma.sync),
+// fp32 accumulation.  Lane (g, t) = (lane / 4, lane % 4) holds A at (row, k)
+// = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B at (k, n) = (t, g),
+// (t + 4, g); D at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// Callers may map k to their own index in any order, the same for A and B.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same product at fp32 accuracy (3xTF32): a_lo b_hi + a_hi b_lo +
+// a_hi b_hi, the small terms first; the dropped a_lo b_lo is below 2^-22.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bhi0,
+                                           uint32_t bhi1, uint32_t blo0, uint32_t blo1) {
+  mma_tf32(d, alo, bhi0, bhi1);
+  mma_tf32(d, ahi, blo0, blo1);
+  mma_tf32(d, ahi, bhi0, bhi1);
 }
 
 }  // namespace hop

@@ -40,14 +40,45 @@
 // by TMA and never stored.  C % 8 == 0, N % 8 == 0 and 16-byte-aligned x, w
 // and out (the wrapper checks).
 //
-// fp32 inputs take a simpler kernel (64 x 64 tiles, per-block statistics,
-// plain FMAs) so that fp32 stays full fp32; it is the training path's
-// comparison kernel, not the bf16 main path.
+// fp32 (the training path: the trainable GestureNet and the VL UNet are
+// fp32): the product runs on the tensor cores in 3xTF32 (hopper.cuh), so it
+// keeps fp32 accuracy (one TF32 product keeps ~3 digits, three ~2^-21).  It
+// is built on mma.sync m16n8k8 with the hi / lo split done in registers as
+// each fragment is loaded: normalised rows hi + lo would need twice the
+// shared memory (320 KB for 128 rows at C = 320), and the mma.sync
+// fragments are loaded 8 bytes a lane from plain row-major tiles.  128 x 128
+// output tiles, 16 warps of 32 x 32, and the same persistent walk as bf16: a
+// block takes a contiguous range of (row block, column tile) pairs.  The
+// rows are normalised once (fp32 statistics in two passes, as jnp.mean /
+// jnp.var, then the affine), in one of two ways (ops/ln_matmul.plan_f32):
+//   - resident (C <= 320, where 128 fp32 rows fit beside the ring): the
+//     tiles go row-major; at each new row block cp.async brings x [128, C]
+//     into shared memory and the warps normalise it in place, once per row
+//     block (the TPU kernel's xn_ref); the weight streams through a ring of
+//     [128, 32] chunks;
+//   - streamed (C > 320): a first pass (ln_matmul_f32_rows, a warp a row)
+//     writes the normalised rows once to a device scratch [R, C] (at most
+//     14 MB at the port's sites: it stays in L2), and each ring stage holds
+//     a [128, 32] chunk of the rows beside the weight's; the tiles go
+//     column-major, so a column tile's weight chunks are reused from L2
+//     across row blocks.  Rows that stayed in shared memory would allow only
+//     32 rows a block at C = 1280, and the 52 MB GEGLU weight would then be
+//     read from device memory once per 32 rows.
+// The ring keeps the load of chunk i + STAGES - 1 in flight while chunk i
+// computes, across tiles.  Each of the three products runs over all of a
+// warp's tiles before the next, so consecutive mma.sync are independent; the
+// epilogue adds the fp32 bias and stores 8 bytes a lane.  The product's k
+// index is mapped to columns (2t, 2t + 1) of both operands, so every
+// fragment is one 8-byte load; row strides of 8 mod 32 floats keep those
+// loads free of bank conflicts.  Rows past R and weight rows past N are
+// zero-filled and never stored; C past a multiple of 32 is zero.
 //
 // Bound at the slice's shapes: R=43008, C=320, N=960 (qkv) is 26 GFLOP
 // against ~110 MB, bound by bytes at 989 TFLOP/s by a hair; C=1280, N=10240
 // at R=2688 is 70 GFLOP, tensor-core bound.  At WM = 1 each weight byte
-// feeds only 64 rows, so the weight stream from L2 is what limits it.
+// feeds only 64 rows, so the weight stream from L2 is what limits it.  In
+// fp32 every product is three TF32 products (a third of 495 TFLOP/s), so
+// the qkv site is bound by operations.
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -360,89 +391,265 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, const void* 
 
 // ------------------------------------------------------------ fp32 path
 
-constexpr int FM = 64, FN = 64, FK = 32, FTHREADS = 128;
-constexpr int FLD = FK + 4;
+// row stride of the normalised rows (floats): C rounded up to 32, + 8, so
+// that it is 8 mod 32.  Must match ops/ln_matmul.plan_f32.
+__host__ __device__ __forceinline__ int f32_lda(int C) { return (C + 31) / 32 * 32 + 8; }
 
-__global__ void __launch_bounds__(FTHREADS)
+// Tiles of the fp32 kernel: 128 x 128 output tiles, chunks of KW = 32
+// columns of C (row stride KW + 8 floats) in a ring of STAGES, 4 x 4 warps
+// of 32 x 32 (MT = 2 m16 tiles x NT = 4 n8 tiles).  STREAM: the rows come
+// normalised from a device scratch through the ring beside the weights (a
+// stage holds both), instead of staying in shared memory.  Must match
+// ops/ln_matmul.plan_f32.
+template <bool STREAM_>
+struct F32Cfg {
+  static constexpr bool STREAM = STREAM_;
+  static constexpr int BM = 128, BN = 128, WM = 4, WN = 4, KW = 32, STAGES = STREAM ? 4 : 3;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int MT = BM / (16 * WM), NT = BN / (8 * WN);
+  static constexpr int LDW = KW + 8, STAGE = ((STREAM ? BM : 0) + BN) * LDW;  // floats
+};
+
+template <typename Cf>
+size_t f32_smem(int C) {
+  return 4 * ((Cf::STREAM ? 0 : (size_t)Cf::BM * f32_lda(C)) + (size_t)Cf::STAGES * Cf::STAGE);
+}
+
+// The LayerNorm of one row a warp (two passes, as jnp.mean / jnp.var), in
+// place in shared memory (srow) or from x into xn in device memory.
+__device__ __forceinline__ float2 row_stats(const float* row, int C, int lane, float eps) {
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += row[c];
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mean = s / C;
+  float q = 0.f;
+  for (int c = lane; c < C; c += 32) q = fmaf(row[c] - mean, row[c] - mean, q);
+  for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+  return make_float2(mean, rsqrtf(q / C + eps));
+}
+
+__global__ void __launch_bounds__(256)
+    ln_matmul_f32_rows(const float* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, float* __restrict__ xn, int R, int C,
+                       float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const float* xr = x + (size_t)row * C;
+  const float2 st = row_stats(xr, C, lane, eps);
+  float* yr = xn + (size_t)row * C;
+  for (int c = lane; c < C; c += 32) yr[c] = fmaf((xr[c] - st.x) * st.y, gamma[c], beta[c]);
+}
+
+// tiles: (row block, column tile) pairs, row-major (resident rows: a block
+// normalises a row block when it reaches it) or column-major (STREAM: the
+// weight chunks of a column tile are reused from L2 across row blocks); a
+// block takes one contiguous range of them
+template <typename Cf>
+__global__ void __launch_bounds__(Cf::THREADS, 1)
     ln_matmul_f32(const float* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const float* __restrict__ w,
                   const float* __restrict__ wb, float* __restrict__ out, int R, int C, int N,
-                  float eps, int has_bias) {
-  __shared__ float sa[FM * FLD], sb[FN * FLD], mean_s[FM], rstd_s[FM];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
-  for (int r = warp; r < FM; r += FTHREADS / 32) {  // per-row stats, one warp per row
-    const int row = m0 + r;
-    float mean = 0.f, rstd = 0.f;
-    if (row < R) {
-      const float* xr = x + (size_t)row * C;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += xr[c];
-      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      mean = s / C;
-      float q = 0.f;
-      for (int c = lane; c < C; c += 32) q = fmaf(xr[c] - mean, xr[c] - mean, q);
-      for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-      rstd = rsqrtf(q / C + eps);
+                  float eps, int tiles_n, int tiles) {
+  constexpr int BM = Cf::BM, BN = Cf::BN, KW = Cf::KW, LDW = Cf::LDW, MT = Cf::MT, NT = Cf::NT;
+  constexpr int THREADS = Cf::THREADS, STAGES = Cf::STAGES, CPW = KW / 4;  // CPW: 16-byte pieces of a chunk row
+  extern __shared__ float4 smem_f4[];
+  float* sA = reinterpret_cast<float*>(smem_f4);  // resident rows: [BM][lda]
+  const int lda = Cf::STREAM ? LDW : f32_lda(C);   // row stride of the rows the warps read
+  float* ring = sA + (Cf::STREAM ? 0 : BM * lda);  // [STAGES][(BM if STREAM) + BN][LDW]
+  const int KC = (C + KW - 1) / KW, tiles_m = tiles / tiles_n;
+  const int t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int total = (t1 - t0) * KC;  // (tile, chunk) pairs: the ring's sequence
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  auto row_block = [&](int tile) { return Cf::STREAM ? tile % tiles_m : tile / tiles_n; };
+  auto col_tile = [&](int tile) { return Cf::STREAM ? tile / tiles_m : tile % tiles_n; };
+
+  auto load_rows = [&](int rb) {  // x [BM, C], the padding to 32 columns zero
+    const int cpr = lda / 4 - 2;
+    for (int i = tid; i < BM * cpr; i += THREADS) {
+      const int r = i / cpr, c = (i % cpr) * 4, row = rb * BM + r;
+      const bool ok = row < R && c < C;
+      hop::cp_async16(sA + r * lda + c, x + (ok ? (size_t)row * C + c : 0), ok);
     }
-    if (lane == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rstd;
+    hop::cp_async_commit();
+  };
+  auto normalise_rows = [&]() {  // in place, a warp a row
+    for (int r = warp; r < BM; r += THREADS / 32) {
+      float* row = sA + r * lda;
+      const float2 st = row_stats(row, C, lane, eps);
+      for (int c = lane; c < C; c += 32) row[c] = fmaf((row[c] - st.x) * st.y, gamma[c], beta[c]);
+    }
+  };
+  auto load_chunk = [&](int it) {  // the weight chunk (and, STREAM, the rows' chunk)
+    const int tile = t0 + it / KC, kc = it % KC, n0 = col_tile(tile) * BN;
+    float* st = ring + (it % STAGES) * Cf::STAGE;
+    for (int i = tid; i < BN * CPW; i += THREADS) {
+      const int r = i / CPW, c = (i % CPW) * 4, n = n0 + r, cc = kc * KW + c;
+      const bool ok = n < N && cc < C;
+      hop::cp_async16(st + r * LDW + c, w + (ok ? (size_t)n * C + cc : 0), ok);
+    }
+    if constexpr (Cf::STREAM) {
+      const int m0 = row_block(tile) * BM;
+      for (int i = tid; i < BM * CPW; i += THREADS) {
+        const int r = i / CPW, c = (i % CPW) * 4, row = m0 + r, cc = kc * KW + c;
+        const bool ok = row < R && cc < C;
+        hop::cp_async16(st + (BN + r) * LDW + c, x + (ok ? (size_t)row * C + cc : 0), ok);
+      }
+    }
+  };
+
+  // 1. the first rows (resident), then the first chunks; 2. normalise
+  int cur_rb = row_block(t0);
+  if (!Cf::STREAM && t0 < t1) load_rows(cur_rb);
+  for (int it = 0; it < STAGES - 1; ++it) {
+    if (it < total) load_chunk(it);
+    hop::cp_async_commit();
+  }
+  if constexpr (!Cf::STREAM) {
+    hop::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    normalise_rows();
+    // (the first sync of the loop below publishes the normalised rows)
+  }
+
+  // 3. the chunks, tile after tile; warp (wm, wn) owns rows wm * MT * 16 ..
+  // and columns wn * NT * 8 .. of each BM x BN tile
+  const int wm = warp / Cf::WN, wn = warp % Cf::WN;
+  const int a_off = (wm * MT * 16 + g) * lda + 2 * t;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    const int tile = t0 + it / KC, kc = it % KC, rb = row_block(tile), nt = col_tile(tile);
+    if (!Cf::STREAM && kc == 0 && rb != cur_rb) {  // a new row block: normalise it
+      __syncthreads();                              // every warp is done with the old rows
+      load_rows(rb);
+      hop::cp_async_wait<0>();
+      __syncthreads();
+      normalise_rows();
+      cur_rb = rb;
+    }
+    hop::cp_async_wait<STAGES - 2>();  // chunk it landed for this thread...
+    __syncthreads();                   // ...and for all; the stage of it - 1 is free
+    if (it + STAGES - 1 < total) load_chunk(it + STAGES - 1);
+    hop::cp_async_commit();
+    const float* st = ring + (it % STAGES) * Cf::STAGE;
+    const float* ak = (Cf::STREAM ? st + BN * LDW : sA + kc * KW) + a_off;
+    const float* bk = st + (wn * NT * 8 + g) * LDW + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < KW / 8; ++ks) {  // k step: columns 8ks + (2t, 2t + 1)
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float2 x0 = *reinterpret_cast<const float2*>(ak + i * 16 * lda + 8 * ks);
+        const float2 x1 = *reinterpret_cast<const float2*>(ak + (i * 16 + 8) * lda + 8 * ks);
+        hop::split_tf32(x0.x, ah[i][0], al[i][0]);
+        hop::split_tf32(x1.x, ah[i][1], al[i][1]);
+        hop::split_tf32(x0.y, ah[i][2], al[i][2]);
+        hop::split_tf32(x1.y, ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        const float2 y = *reinterpret_cast<const float2*>(bk + jn * 8 * LDW + 8 * ks);
+        hop::split_tf32(y.x, bh[jn][0], bl[jn][0]);
+        hop::split_tf32(y.y, bh[jn][1], bl[jn][1]);
+      }
+      // the three products, each over every (i, jn) before the next, so
+      // that consecutive mma.sync are independent
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) hop::mma_tf32(acc[i][jn], al[i], bh[jn][0], bh[jn][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) hop::mma_tf32(acc[i][jn], ah[i], bl[jn][0], bl[jn][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) hop::mma_tf32(acc[i][jn], ah[i], bh[jn][0], bh[jn][1]);
+    }
+    if (kc == KC - 1) {  // 4. the tile is done: + bias, store, start the next
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        const int col = nt * BN + wn * NT * 8 + jn * 8 + 2 * t;
+        float2 bias = make_float2(0.f, 0.f);
+        if (wb != nullptr) {
+          if (col < N) bias.x = wb[col];
+          if (col + 1 < N) bias.y = wb[col + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = rb * BM + wm * MT * 16 + i * 16 + g + 8 * hh;
+            const float y0 = acc[i][jn][2 * hh] + bias.x, y1 = acc[i][jn][2 * hh + 1] + bias.y;
+            acc[i][jn][2 * hh] = acc[i][jn][2 * hh + 1] = 0.f;
+            if (row >= R || col >= N) continue;
+            float* p = out + (size_t)row * N + col;
+            if ((N & 1) == 0) {
+              *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+            } else {
+              p[0] = y0;
+              if (col + 1 < N) p[1] = y1;
+            }
+          }
+      }
     }
   }
-  __syncthreads();
-  const int tr = tid >> 4, tc = tid & 15;  // 8 rows x 4 columns per thread
-  float acc[8][4] = {};
-  for (int k0 = 0; k0 < C; k0 += FK) {
-    for (int i = tid; i < FM * FK; i += FTHREADS) {
-      const int r = i / FK, kk = i % FK, row = m0 + r, col = n0 + r, c = k0 + kk;
-      sa[r * FLD + kk] = (row < R && c < C)
-          ? fmaf((x[(size_t)row * C + c] - mean_s[r]) * rstd_s[r], gamma[c], beta[c]) : 0.f;
-      sb[r * FLD + kk] = (col < N && c < C) ? w[(size_t)col * C + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sa[(tr * 8 + i) * FLD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[(tc * 4 + j) * FLD + kk];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+}
+
+// STREAM: the rows are normalised once into scratch ([R, C] fp32) by
+// ln_matmul_f32_rows, then streamed
+template <typename Cf>
+int launch_f32(const void* x, const void* gamma, const void* beta, const void* w,
+               const void* wb, void* out, void* scratch, int R, int C, int N, float eps,
+               int grid, int smem, cudaStream_t st) {
+  if ((size_t)smem < f32_smem<Cf>(C) || smem > kSmemLimit || grid < 1 ||
+      (Cf::STREAM && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t e = cudaFuncSetAttribute(
+      ln_matmul_f32<Cf>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e != cudaSuccess) return (int)e;
+  const float* rows = static_cast<const float*>(x);
+  if (Cf::STREAM) {
+    ln_matmul_f32_rows<<<(R + 7) / 8, 256, 0, st>>>(rows, static_cast<const float*>(gamma),
+                                                    static_cast<const float*>(beta),
+                                                    static_cast<float*>(scratch), R, C, eps);
+    rows = static_cast<const float*>(scratch);
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + tr * 8 + i, col = n0 + tc * 4 + j;
-      if (row < R && col < N)
-        out[(size_t)row * N + col] = acc[i][j] + (has_bias ? wb[col] : 0.f);
-    }
+  const int tiles_n = (N + Cf::BN - 1) / Cf::BN;
+  const int tiles = (R + Cf::BM - 1) / Cf::BM * tiles_n;
+  ln_matmul_f32<Cf><<<grid, Cf::THREADS, smem, st>>>(
+      rows, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(w), static_cast<const float*>(wb), static_cast<float*>(out), R,
+      C, N, eps, tiles_n, tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16: wm (1 or 2), stages, grid and smem come from ops/ln_matmul.plan;
-// fp32 ignores them.  wb may be null (no bias).
+// fp32: wm is 1 when the rows stream (F32Cfg<true>), else 0; grid and smem
+// come from ops/ln_matmul.plan_f32 (stages is ignored); scratch, [R, C]
+// fp32, only when the rows stream.  wb may be null.
 extern "C" int ttv_ln_matmul(const void* x, const void* gamma, const void* beta,
-                             const void* w, const void* wb, void* out, int R, int C, int N,
-                             float eps, int is_bf16, int wm, int stages, int grid, int smem,
-                             void* stream) {
+                             const void* w, const void* wb, void* out, void* scratch, int R,
+                             int C, int N, float eps, int is_bf16, int wm, int stages, int grid,
+                             int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (wm == 2) return launch_bf16<2>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
     if (wm == 1) return launch_bf16<1>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
     return (int)cudaErrorInvalidValue;
   }
-  dim3 fgrid((R + FM - 1) / FM, (N + FN - 1) / FN);
-  ln_matmul_f32<<<fgrid, FTHREADS, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(w),
-      static_cast<const float*>(wb), static_cast<float*>(out), R, C, N, eps, wb != nullptr);
-  return (int)cudaGetLastError();
+  if (wm == 0)
+    return launch_f32<F32Cfg<false>>(x, gamma, beta, w, wb, out, scratch, R, C, N, eps, grid, smem, st);
+  if (wm == 1)
+    return launch_f32<F32Cfg<true>>(x, gamma, beta, w, wb, out, scratch, R, C, N, eps, grid, smem, st);
+  return (int)cudaErrorInvalidValue;
 }

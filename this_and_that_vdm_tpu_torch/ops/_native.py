@@ -37,8 +37,9 @@ _SIGNATURES = {
     "ttv_groupnorm_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, ws, gamma, beta, y, N, S, C, G, eps, silu, blocks_per_row, is_bf16, stream
     "ttv_groupnorm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # x, gamma, beta, w, wb, out, R, C, N, eps, is_bf16, wm, stages, grid, smem, stream
-    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    # x, gamma, beta, w, wb, out, scratch, R, C, N, eps, is_bf16, wm (fp32: the
+    # configuration), stages, grid, smem, stream
+    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # g, mq, ms, nq, ns, step, mq2, ms2, nq2, ns2, nb, hyper (17 floats), stream
     "ttv_adam8bit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_F), _P],
 }

@@ -4,9 +4,10 @@ Counterpart of ``this_and_that_vdm_tpu/ops/flash_attention.py``.  The TPU
 kernel (``_kernel``, launched by ``_flash_call``) computes one fp32 [BQ, S]
 score tile per program in VMEM.  The CUDA kernel streams K/V tiles with an
 online softmax instead, because a block's shared memory holds 227 KB, not
-megabytes; in bf16 it runs on wgmma with TMA loads (the source's header has
-the design).  Bound at the slice's main site ``[28, 1536, 5, 64]`` bf16:
-84.6 GFLOP against 110 MB of q/k/v/o, i.e. tensor-core bound.
+megabytes; in bf16 it runs on wgmma with TMA loads, in fp32 on mma.sync in
+3xTF32 with cp.async loads (the source's header has the designs).  Bound at
+the slice's main site ``[28, 1536, 5, 64]`` bf16: 84.6 GFLOP against 110 MB
+of q/k/v/o, i.e. tensor-core bound.
 
 The kernel reads q, k and v in place through their strides (the TMA
 descriptors are 4-D over (D, H, S, B)), so the ``.chunk(3)`` views of a

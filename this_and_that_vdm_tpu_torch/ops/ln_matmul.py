@@ -2,11 +2,13 @@
 
 Counterpart of ``this_and_that_vdm_tpu/ops/ln_matmul.py`` (the Pallas
 ``_kernel`` launched by ``_ln_matmul_pallas_local``, held against
-``_reference``).  The kernel normalises each row block once in fp32, rounds
-it to the input dtype in shared memory and multiplies it by weight tiles
-streamed through a TMA ring on wgmma, with fp32 accumulation and the bias in
-the epilogue; the normalised tensor never reaches device memory.  See the
-source's header for the design; ``plan`` picks its tiles.  Bound at the qkv
+``_reference``).  The kernel normalises each row block once in fp32, keeps
+it in shared memory in the input dtype and multiplies it by streamed weight
+tiles with fp32 accumulation and the bias in the epilogue; the normalised
+tensor never reaches device memory.  bf16 runs on wgmma with a TMA ring
+(tiles from ``plan``); fp32 runs on mma.sync in 3xTF32 with a cp.async ring
+(``plan_f32``), and above C = 320 writes the normalised rows once to a
+scratch and streams them.  See the source's header for the designs.  Bound at the qkv
 site (R=43008, C=320, N=960): 26 GFLOP against ~110 MB, about even; 70
 GFLOP at the level-3 GEGLU input (R=2688, C=1280, N=10240), FLOPs.
 
@@ -78,6 +80,45 @@ def plan(r: int, c: int, n: int, sms: int = _SMS) -> Plan:
                      f"in shared memory and a row in one warp's registers), got C={c}")
 
 
+# fp32 tiles (csrc/ln_matmul.cu F32Cfg): 128 x 128, chunks of 32 columns of
+# C in a ring of 3 stages (rows resident) or 4 (rows streamed)
+_F32_BM = _F32_BN = 128
+_F32_KW = 32
+_F32_STAGES = {False: 3, True: 4}
+
+
+class PlanF32(NamedTuple):
+    """Tiles of the fp32 kernel: ``stream`` -- the normalised rows go
+    through a device scratch and the ring, else they stay in shared memory
+    at a row stride of ``lda`` floats; ``smem`` bytes; ``tiles`` (row block,
+    column tile) pairs, ``tiles_n`` per row block, cut into ``grid``
+    contiguous ranges, one per block."""
+    stream: bool
+    lda: int
+    smem: int
+    tiles_n: int
+    tiles: int
+    grid: int
+
+
+def plan_f32(r: int, c: int, n: int, sms: int = _SMS) -> PlanF32:
+    """The rows stay in shared memory when 128 of them fit beside the ring
+    (C <= 320), else they stream.  Mirrors ``f32_lda`` and ``f32_smem`` in
+    csrc/ln_matmul.cu: resident rows at a stride of C rounded up to 32, + 8
+    floats (8 mod 32: the 8-byte fragment loads are free of bank
+    conflicts), and ring stages of [128 (+ 128 rows when streamed), 32 + 8]."""
+    lda = -(-c // 32) * 32 + 8
+    for stream in (False, True):
+        rows = 0 if stream else _F32_BM * lda
+        stage = ((_F32_BM if stream else 0) + _F32_BN) * (_F32_KW + 8)
+        smem = 4 * (rows + _F32_STAGES[stream] * stage)
+        if smem <= SMEM_LIMIT:
+            break
+    tiles_n = -(-n // _F32_BN)
+    tiles = -(-r // _F32_BM) * tiles_n
+    return PlanF32(stream, lda, smem, tiles_n, tiles, min(tiles, sms))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -106,11 +147,20 @@ def _launch(x2, scale, bias, w, wb, eps):
     r, c = x2.shape
     n = w.shape[0]
     out = torch.empty((r, n), device=x2.device, dtype=x2.dtype)
-    p = plan(r, c, n, _sm_count(x2.device.index)) if x2.dtype == torch.bfloat16 else None
-    tiles = (0, 0, 0, 0) if p is None else (p.wm, p.stages, p.grid, p.smem)
+    is_bf16 = x2.dtype == torch.bfloat16
+    scratch = None
+    if is_bf16:
+        p = plan(r, c, n, _sm_count(x2.device.index))
+        tiles = (p.wm, p.stages, p.grid, p.smem)
+    else:
+        p = plan_f32(r, c, n, _sm_count(x2.device.index))
+        tiles = (int(p.stream), 0, p.grid, p.smem)
+        if p.stream:  # the normalised rows, written once and streamed
+            scratch = torch.empty_like(x2)
     _native.launch("ttv_ln_matmul", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                    w.data_ptr(), 0 if wb is None else wb.data_ptr(), out.data_ptr(),
-                   r, c, n, float(eps), int(p is not None), *tiles, _native.stream_ptr(x2))
+                   0 if scratch is None else scratch.data_ptr(),
+                   r, c, n, float(eps), int(is_bf16), *tiles, _native.stream_ptr(x2))
     launches += 1
     return out
 
