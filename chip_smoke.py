@@ -20,13 +20,22 @@ Phases (any failure raises and exits nonzero):
                  as the .chunk(3) views of a fused qkv product, K3 at every
                  (R, C, N) of its LN -> projection sites; K1 and K3 fp32 at
                  the shapes of both and at those of the batch-1 train
-                 steps.  Then the backward
-                 of K1-K3 against autograd of the plain versions
+                 steps; K2 at every GroupNorm site of the denoise step,
+                 labelled with its route (resident in shared memory or
+                 streamed), at the VAE decoder's and the fp32 train sites,
+                 and on constant input; K4 one leaf at a time and over the
+                 GestureNet's 655 leaves in one call.  Each case also gets
+                 its device time a call (torch.profiler over as many calls
+                 as the events time) and its count of device activities a
+                 call.  Then the backward of K1-K3 against autograd of the
+                 plain versions
   4. denoiser    one full-width ControlNet + UNet forward (CFG batch 2, 14
                  frames of 32x48 latents, bf16) with the kernels and through
                  the plain versions; relative L2 error held to a bound; then
                  one more forward under torch.profiler: device ms by kernel,
-                 the device-busy share of its span, K1 and K3 ms per step
+                 the device-busy share of its span, K1 and K3 ms per step,
+                 K2's ms and launches beside its bound for the step (one
+                 read and one write of every GroupNorm input)
   5. slice       StableVideoDiffusionControlNetPipeline at full width (seeded
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
@@ -35,7 +44,9 @@ Phases (any failure raises and exits nonzero):
                  as written (14x256x384, batch 1, remat, bf16 frozen towers
                  and UNet, fp32 GestureNet, 8-bit AdamW, clip 1.0), 3 steps
                  of synthetic data into a temporary output directory; the
-                 last step runs under torch.profiler (device time by kernel)
+                 last step runs under torch.profiler (device time by kernel;
+                 K2's and K4's ms and launches beside their bounds for the
+                 step); the host ms of each optimizer update
   7. VL train    the same on config/train_image2video.yaml (the 1.525 B-param
                  UNet trains in fp32), 3 steps, the last one profiled
 
@@ -118,6 +129,36 @@ K3_SHAPES = {torch.bfloat16: [(r, c, n, n == 8 * c) for r, c in _K3_ROWS
                              (2688, 1280, 10240, True)]
              + [(r, c, n, n == 8 * c) for r, c in _K3_TRAIN_ROWS for n in (c, 3 * c, 8 * c)]
              + [(336, 1280, 3840, False)]}
+
+# K2 cases, every distinct GroupNorm site (shape, eps, SiLU) of the denoise
+# step at CFG 2 (bf16; rank 5 folds frames into the statistics): 152 calls
+# over these 25 sites; the first is the one the kernels line reports.  Then
+# the VAE decoder's largest sites (chunk 8) and the batch-1 train sites, in
+# fp32 for the GestureNet and the VL UNet.  A site of at most 27.5 MB is
+# held in shared memory (the resident route), a larger one is streamed.
+K2_DENOISE = [((28, 32, 48, 320), 1e-6, True), ((2, 14, 32, 48, 320), 1e-6, True),
+              ((28, 32, 48, 320), 1e-6, False), ((28, 32, 48, 320), 1e-5, True),
+              ((28, 32, 48, 960), 1e-6, True), ((28, 32, 48, 640), 1e-6, True),
+              ((28, 16, 24, 1920), 1e-6, True), ((28, 16, 24, 1280), 1e-6, True),
+              ((28, 16, 24, 960), 1e-6, True), ((28, 16, 24, 640), 1e-6, True),
+              ((2, 14, 16, 24, 640), 1e-6, True), ((28, 16, 24, 640), 1e-6, False),
+              ((28, 8, 12, 2560), 1e-6, True), ((28, 8, 12, 1920), 1e-6, True),
+              ((28, 16, 24, 320), 1e-6, True), ((28, 8, 12, 1280), 1e-6, True),
+              ((2, 14, 8, 12, 1280), 1e-6, True), ((28, 8, 12, 1280), 1e-6, False),
+              ((28, 8, 12, 640), 1e-6, True), ((28, 4, 6, 2560), 1e-6, True),
+              ((28, 4, 6, 1280), 1e-5, True), ((2, 14, 4, 6, 1280), 1e-5, True),
+              ((28, 4, 6, 1280), 1e-6, False), ((28, 4, 6, 1280), 1e-6, True),
+              ((2, 14, 4, 6, 1280), 1e-6, True)]
+K2_OTHER = {torch.bfloat16: [((8, 256, 384, 128), 1e-6, False), ((1, 8, 256, 384, 128), 1e-5, True),
+                             ((8, 256, 384, 256), 1e-6, True), ((2, 14 * 1536, 320), 1e-5, True)],
+            torch.float32: [((14, 32, 48, 320), 1e-6, True), ((1, 14, 32, 48, 320), 1e-6, True),
+                            ((14, 16, 24, 640), 1e-6, True), ((14, 8, 12, 1280), 1e-6, True),
+                            ((14, 4, 6, 1280), 1e-5, True), ((14, 32, 48, 640), 1e-6, True),
+                            ((14, 32, 48, 960), 1e-6, True), ((14, 16, 24, 1920), 1e-6, True),
+                            ((14, 4, 6, 2560), 1e-6, True), ((28, 1536, 320), 1e-6, True),
+                            ((2, 14 * 1536, 320), 1e-5, True), ((8, 256 * 384, 128), 1e-6, False)]}
+# the constant-input case (zero-variance groups) on each route
+K2_CONSTANT = [(28, 1536, 320), (28, 1536, 640)]
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
 # by type.  bf16 runs on the tensor cores at 989 TFLOP/s.  The fp32 kernels
@@ -272,7 +313,7 @@ def kernel_cases():
                 q, k, v = (_randn(shape, dtype, s) for s in range(3))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D] views
             cases.append(dict(
-                kernel="flash_attention",
+                kernel="flash_attention", device_key=f"flash_attention {dn}",
                 label=f"{list(shape)}{' qkv views' if views else ''} {dn}",
                 kern=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, 0.125),
                 plain=lambda q=q, k=k, v=v: fa._plain(q, k, v, 0.125), scale=None,
@@ -280,23 +321,29 @@ def kernel_cases():
                 library=lambda q=qt, k=kt, v=vt: tF.scaled_dot_product_attention(
                     q, k, v, scale=0.125),
                 library_note="F.scaled_dot_product_attention"))
-        for shape, eps, silu, const in (((28, 1536, 320), 1e-6, True, False),
-                                        ((2, 14 * 1536, 320), 1e-5, True, False),
-                                        ((8, 256 * 384, 128), 1e-6, False, False),
-                                        ((28, 1536, 320), 1e-6, False, True)):
+        gn_sites = ([(sh, e, sl, False) for sh, e, sl in (K2_DENOISE if dtype == torch.bfloat16
+                                                           else [])]
+                    + [(sh, e, sl, False) for sh, e, sl in K2_OTHER[dtype]]
+                    + [(sh, 1e-6, False, True) for sh in K2_CONSTANT])
+        for shape, eps, silu, const in gn_sites:
             c = shape[-1]
             x = (torch.full(shape, 3.0, device="cuda", dtype=dtype) if const
                  else _randn(shape, dtype, 4, 2.0, 0.5))
             w, b = _randn((c,), torch.float32, 5, 0.1, 1.0), _randn((c,), torch.float32, 6, 0.1)
-            wl, bl, xcf = w.to(dtype), b.to(dtype), x.permute(0, 2, 1)  # channels-first view
+            wl, bl = w.to(dtype), b.to(dtype)
+            xcf = x.reshape(shape[0], -1, c).permute(0, 2, 1)  # channels-first view
 
             def library(x=xcf, w=wl, b=bl, e=eps, s=silu):
                 y = tF.group_norm(x, 32, w, b, e)
                 return tF.silu(y) if s else y
 
-            label = f"{list(shape)} eps={eps} silu={silu}{' constant' if const else ''} {dn}"
+            p = gn.plan(shape[0], x.numel() // (shape[0] * c), c, 32, x.element_size(),
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+            route = "resident" if p.resident else "streamed"
+            label = (f"{list(shape)} eps={eps} silu={silu}{' constant' if const else ''} {dn} "
+                     f"{route}")
             cases.append(dict(
-                kernel="groupnorm", label=label,
+                kernel="groupnorm", label=label, device_key="groupnorm",
                 kern=lambda x=x, w=w, b=b, e=eps, s=silu: gn.group_norm(x, w, b, 32, e, s),
                 plain=lambda x=x, w=w, b=b, e=eps, s=silu: gn._plain(x, w, b, 32, e, s),
                 scale=3.0 * w.abs().max().item() / eps ** 0.5 if const else None,
@@ -313,6 +360,7 @@ def kernel_cases():
             wbl = None if wb is None else wb.to(dtype)
             cases.append(dict(
                 kernel="ln_matmul", label=f"R={r} C={c} N={n} bias={bias} {dn}",
+                device_key=f"ln_matmul {dn}",
                 kern=lambda x=x, s=s, b=b, w=w, wb=wb: lm.ln_matmul(x, s, b, w, wb),
                 plain=lambda x=x, s=s, b=b, w=w, wb=wb: lm._reference(x, s, b, w, wb, 1e-5),
                 scale=None,
@@ -357,9 +405,41 @@ def k4_compare(got, want):
     return abs_err, rel, off
 
 
+def gesturenet_numels():
+    """Element counts of the GestureNet's trainable leaves (the whole
+    ControlNet at its published widths), read from a model on the meta
+    device: the VGL train step's tree."""
+    from this_and_that_vdm_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
+
+    with torch.device("meta"):
+        model = ControlNetModel(ControlNetConfig())
+    return [p.numel() for p in model.parameters()]
+
+
+def k4_tree_inputs(numels, seed):
+    """Per-leaf gradients and moment states as views of one set of buffers
+    (leaf i at its first global block, so every view is 16-byte aligned);
+    the ragged tail of each leaf holds the zero codes."""
+    from this_and_that_vdm_tpu_torch.ops import adam8bit as k4
+
+    first, total = k4.leaf_blocks(numels)
+    grad, mq, ms, nq, ns = k4_inputs(total, seed)
+    flat = [t.view(-1) for t in (grad, mq, nq)]
+    for f, n in zip(first, numels):
+        tail = slice(f * 256 + n, -(-n // 256) * 256 + f * 256)
+        flat[1][tail], flat[2][tail] = 127, 0
+    gs = [flat[0][f * 256:f * 256 + n] for f, n in zip(first, numels)]
+    mqs = [flat[1][f * 256:(f + -(-n // 256)) * 256] for f, n in zip(first, numels)]
+    nqs = [flat[2][f * 256:(f + -(-n // 256)) * 256] for f, n in zip(first, numels)]
+    mss = [ms[f:f + -(-n // 256)] for f, n in zip(first, numels)]
+    nss = [ns[f:f + -(-n // 256)] for f, n in zip(first, numels)]
+    return (gs, mqs, mss, nqs, nss), total
+
+
 def adam8bit_cases():
     """K4 at the 13.1 M-parameter GEGLU leaf (NB = 51,200), a 90-block leaf and
-    a ragged 513-element leaf, each at t = 1 and t = 1000."""
+    a ragged 513-element leaf, each at t = 1 and t = 1000 (one-leaf calls);
+    then the GestureNet's 655 leaves in one call, at t = 1 and t = 1000."""
     from this_and_that_vdm_tpu_torch.ops import adam8bit as k4
 
     cases = []
@@ -370,11 +450,74 @@ def adam8bit_cases():
             bc = k4.bias_corrections(t, 0.9, 0.999)
             cases.append(dict(
                 kernel="adam8bit", label=f"NB={nb}{f' ({valid} valid)' if valid else ''} t={t}",
+                device_key="adam8bit",
                 kern=lambda ins=ins, bc=bc: k4.adam8bit_update(*ins, bc),
                 plain=lambda ins=ins, bc=bc: k4._plain(*ins, bc, 0.9, 0.999, 1e-8),
                 work=(50.0 * n, 12.0 * n + 16.0 * nb, torch.float32), library=None,
                 library_note=None, valid=valid))
+    numels = gesturenet_numels()
+    ins, total = k4_tree_inputs(numels, 13)
+    for t in (1, 1000):
+        bc = k4.bias_corrections(t, 0.9, 0.999)
+        cases.append(dict(
+            kernel="adam8bit", label=f"GestureNet tree: {len(numels)} leaves, "
+                                     f"{sum(numels) / 1e9:.4f} B params t={t}",
+            device_key="adam8bit", tree=numels,
+            kern=lambda ins=ins, bc=bc: k4.adam8bit_leaves(*ins, bc),
+            plain=lambda ins=ins, bc=bc: k4._plain_leaves(*ins, bc, 0.9, 0.999, 1e-8),
+            work=(50.0 * sum(numels), 12.0 * sum(numels) + 16.0 * total, torch.float32),
+            library=None, library_note=None, valid=None))
     return cases
+
+
+def k4_tree_compare(got, want, numels):
+    """The K4 bounds over a tree's update: step error over max |step| and
+    scale errors leaf by leaf, codes off by at most 1 everywhere and off on
+    under K4_CODE_SHARE of the tree's codes (a share within one leaf of a
+    block or two would count a single code as 0.2-0.4%), and the zero codes
+    of every ragged tail; (max abs step error, worst step error / max
+    |step| of its leaf, share of codes off by 1)."""
+    abs_err = rel = 0.0
+    off = total = 0
+    for i, n in enumerate(numels):
+        if not n:
+            continue
+        (step, mq, ms, nq, ns), (wstep, wmq, wms, wnq, wns) = ([o[i] for o in got],
+                                                             [o[i] for o in want])
+        d = (step - wstep).abs().max().item()
+        abs_err, rel = max(abs_err, d), max(rel, d / wstep.abs().max().item())
+        for a, b in ((mq, wmq), (nq, wnq)):
+            diff = (a.int() - b.int()).abs()
+            if diff.max().item() > 1:
+                raise RuntimeError(f"adam8bit tree: leaf {i} has codes off by more than 1")
+            off += int((diff > 0).sum().item())
+            total += diff.numel()
+        scale_rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                        for a, b in ((ms, wms), (ns, wns)))
+        if not (rel < K4_STEP_BOUND and scale_rel <= K4_SCALE_BOUND):
+            raise RuntimeError(f"adam8bit tree: leaf {i} step rel {rel:.3e}, scales rel "
+                               f"{scale_rel:.3e}")
+        if not ((got[1][i][n:] == 127).all() and (got[3][i][n:] == 0).all()):
+            raise RuntimeError(f"adam8bit tree: leaf {i} lost the zero codes of its tail")
+    if not off / total < K4_CODE_SHARE:
+        raise RuntimeError(f"adam8bit tree: codes off on {off / total:.2e} of the tree")
+    return abs_err, rel, off / total
+
+
+def profiled_device_ms(fn, key, iters=10):
+    """(device ms a launch of the kernel ``key`` of KERNEL_NAMES, device
+    activities of any kind a call): ``iters`` calls under torch.profiler,
+    after one warm-up, as many calls as ``cuda_ms`` times."""
+    fn()
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    dt = device_time(prof)
+    # per launch the profiler saw (it can drop an event of a short burst)
+    return (dt["kernels_ms"][key] / max(dt["kernel_launches"][key], 1),
+            dt["activities"] / iters)
 
 
 def phase_kernels():
@@ -383,7 +526,10 @@ def phase_kernels():
         name, label = case["kernel"], case["label"]
         got, want = case["kern"](), case["plain"]()
         sync()
-        if name == "adam8bit":
+        if "tree" in case:
+            abs_err, rel, off = k4_tree_compare(got, want, case["tree"])
+            extra = f"codes off by 1: {off:.2e}"
+        elif name == "adam8bit":
             abs_err, rel, off = k4_compare(got, want)
             if case["valid"] is not None and not (
                     (got[1].view(-1)[case["valid"]:] == 127).all()
@@ -401,19 +547,22 @@ def phase_kernels():
         del got, want
         ms, plain_ms = cuda_ms(case["kern"]), cuda_ms(case["plain"])
         lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
+        dev_ms, per_call = profiled_device_ms(case["kern"], case["device_key"])
         bound_ms, bound_by = bound(*case["work"])
         log(f"[kernel] {name:15s} {label:45s} max_abs={abs_err:.3e} rel={rel:.3e} {extra}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {per_call:g} device activities a "
+            f"call)  plain {plain_ms:.4f} ms  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound_ms:.4f} ms "
             f"({bound_by})")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["cases"].append(dict(case=label, max_abs_err=abs_err, rel_err=rel, ms=ms,
+                               device_ms=dev_ms, device_activities_per_call=per_call,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library=case["library_note"]))
         if "ms" not in r:  # first case = the main-path site (bf16 where it applies)
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library=case["library_note"])
+            r.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library=case["library_note"])
     sync()
     torch.cuda.empty_cache()
     return results
@@ -533,6 +682,62 @@ def plain_versions():
             setattr(m, n, f)
 
 
+@contextlib.contextmanager
+def gn_recorder(sizes):
+    """Append the bytes of every GroupNorm input the model code sends to K2
+    (``layers.group_norm``) to ``sizes``: K2's bound is one read and one
+    write of each."""
+    from this_and_that_vdm_tpu_torch.models import layers
+
+    orig = layers.group_norm
+
+    def recorded(x, *args, **kwargs):
+        sizes.append(x.numel() * x.element_size())
+        return orig(x, *args, **kwargs)
+
+    layers.group_norm = recorded
+    try:
+        yield sizes
+    finally:
+        layers.group_norm = orig
+
+
+@contextlib.contextmanager
+def timed_optimizer(host_ms):
+    """Append the host milliseconds of every optimizer update (the whole
+    ``tx.update`` of the chain, launches enqueued, no synchronisation) that
+    ``train_loop.main`` runs to ``host_ms``."""
+    from this_and_that_vdm_tpu_torch.training import optimizers, trainer
+
+    orig = trainer.make_optimizer
+
+    def make(*args, **kwargs):
+        tx = orig(*args, **kwargs)
+
+        def update(updates, state, params=None):
+            t0 = time.perf_counter()
+            out = tx.update(updates, state, params)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return optimizers.GradientTransformation(tx.init, update)
+
+    trainer.make_optimizer = make
+    try:
+        yield host_ms
+    finally:
+        trainer.make_optimizer = orig
+
+
+def gn_bound_ms(sizes):
+    return 2.0 * sum(sizes) / PEAK_BYTES * 1e3
+
+
+def k4_bound_ms(numels):
+    """K4's least time for a tree: 12 bytes a parameter, 16 a block."""
+    return (12.0 * sum(numels) + 16.0 * sum(-(-n // 256) for n in numels)) / PEAK_BYTES * 1e3
+
+
 def denoiser_step(pipe):
     """One denoise step's model work: ControlNet + UNet at full width, CFG
     batch 2, 14 frames of 32x48 latents, seeded inputs."""
@@ -572,8 +777,9 @@ def phase_denoiser(pipe):
     forward = denoiser_step(pipe)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    got = forward()
-    sync()
+    with gn_recorder([]) as gn_sizes:
+        got = forward()
+        sync()
     t_kern = time.perf_counter() - t0
     counts = ops.launch_counts()
     with plain_versions():
@@ -595,10 +801,14 @@ def phase_denoiser(pipe):
     ms = prof_dt["kernels_ms"]
     step = dict(device_ms=prof_dt["total_ms"], wall_ms=wall_ms, span_ms=span_ms, busy_share=busy,
                 k1_ms=ms["flash_attention bf16"], k3_ms=ms["ln_matmul bf16"], kernels_ms=ms,
-                top_ms=prof_dt["top_ms"])
+                k2_ms=ms["groupnorm"], k2_launches=prof_dt["kernel_launches"]["groupnorm"],
+                k2_calls=len(gn_sizes), k2_bound_ms=gn_bound_ms(gn_sizes),
+                kernel_launches=prof_dt["kernel_launches"], top_ms=prof_dt["top_ms"])
     log(f"[denoiser] profiled step: device {step['device_ms']:.3f} ms over a {span_ms:.3f} ms "
         f"span (busy {busy:.3f}; wall {wall_ms:.3f} ms under the profiler); K1 "
-        f"{step['k1_ms']:.3f} ms, K3 {step['k3_ms']:.3f} ms per step; the port's kernels (ms) "
+        f"{step['k1_ms']:.3f} ms, K3 {step['k3_ms']:.3f} ms per step; K2 {step['k2_ms']:.3f} ms "
+        f"device over {step['k2_launches']} launches ({len(gn_sizes)} calls, bound "
+        f"{step['k2_bound_ms']:.3f} ms); the port's kernels (ms) "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
         + "; largest: " + "; ".join(f"{n} {t:.3f}" for n, t in prof_dt["top_ms"]))
     return rel_l2, step
@@ -677,16 +887,16 @@ def _same(snap, tensors):
 # "ln_matmul fp32" includes the row pass of its streamed tiles, also shown
 # on its own (so the products' launches are the difference)
 KERNEL_NAMES = {"flash_attention fp32": ("flash_f32",), "flash_attention bf16": ("flash_bf16",),
-                "groupnorm": ("gn_stats", "gn_apply"), "ln_matmul fp32": ("ln_matmul_f32",),
+                "groupnorm": ("gn_coop",), "ln_matmul fp32": ("ln_matmul_f32",),
                 "ln_matmul fp32 row pass": ("ln_matmul_f32_rows",),
                 "ln_matmul bf16": ("ln_matmul_bf16",),
-                "adam8bit": ("adam8bit_kernel",)}
+                "adam8bit": ("adam8bit_multi",)}
 
 
 def device_time(prof):
     """Device milliseconds of one profiled step: in total, by kernel of the
-    port (with its launches in the step, by kernel name), and the ten
-    largest kernels by name."""
+    port (with its launches in the step, by kernel name), the ten largest
+    kernels by name, and the count of device activities of any kind."""
     by_name, calls = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -698,7 +908,7 @@ def device_time(prof):
                   for k, pieces in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(total_ms=sum(by_name.values()), kernels_ms=ours, kernel_launches=ours_calls,
-                top_ms=[(n[:90], t) for n, t in top])
+                top_ms=[(n[:90], t) for n, t in top], activities=sum(calls.values()))
 
 
 def busy_share(prof):
@@ -736,7 +946,7 @@ def phase_train(mode, config, steps, profile, smi):
         with open(cfg_path, "w") as f:
             f.write("\n".join(lines) + "\n")
         rec = dict(metrics=[], step_s=[], resume=None, checks={})
-        snap = {}
+        snap, gn_sizes, opt_ms = {}, [], []
 
         def on_step(step, state, m, models):
             # a step's seconds run from the end of one call to the start of
@@ -753,6 +963,7 @@ def phase_train(mode, config, steps, profile, smi):
         def checks(step, state, m, models):
             if "prof" in rec:  # the last step ran under the profiler
                 rec["prof"].__exit__(None, None, None)
+                rec.pop("gn").__exit__(None, None, None)
                 rec["profile"] = device_time(rec.pop("prof"))
             adam = state.opt_state[1][0] if mode == "vgl" else state.opt_state[0]
             if step == 0:
@@ -772,6 +983,8 @@ def phase_train(mode, config, steps, profile, smi):
                 rec["checks"]["codes_changed"] = any(
                     bool((q.q != 127).any()) for q in adam.mu.values())
                 rec["state_params"] = sum(state.params[k].numel() for k in adam.mu)
+                rec["k4_bound_ms"] = k4_bound_ms([state.params[k].numel() for k in adam.mu])
+                rec["leaves"] = len(adam.mu)
                 rec["checks"]["state_covers_the_tree"] = set(adam.mu) == set(state.params)
                 if mode == "vgl":
                     rec["checks"]["unet_bitwise_unchanged"] = _same(
@@ -779,12 +992,15 @@ def phase_train(mode, config, steps, profile, smi):
                 snap.clear()
             if profile and step == steps - 1:  # profile the last step (not timed)
                 act = torch.profiler.ProfilerActivity
+                rec["gn"] = gn_recorder(gn_sizes)
+                rec["gn"].__enter__()
                 rec["prof"] = torch.profiler.profile(activities=[act.CPU, act.CUDA])
                 rec["prof"].__enter__()
 
         t0 = time.perf_counter()
-        train_loop.main(["--config", cfg_path, "--mode", mode, "--synthetic", "4",
-                         "--max-steps", str(steps)], on_step=on_step)
+        with timed_optimizer(opt_ms):
+            train_loop.main(["--config", cfg_path, "--mode", mode, "--synthetic", "4",
+                             "--max-steps", str(steps)], on_step=on_step)
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -799,6 +1015,14 @@ def phase_train(mode, config, steps, profile, smi):
             f"{m['grad_norm']:.6f}")
     prof = rec.get("profile")
     if prof is not None:
+        prof.update(k2_bound_ms=gn_bound_ms(gn_sizes), k2_calls=len(gn_sizes),
+                    k4_bound_ms=rec["k4_bound_ms"])
+        log(f"[train {mode}] profiled step {steps}: K4 {prof['kernels_ms']['adam8bit']:.3f} ms "
+            f"device over {prof['kernel_launches']['adam8bit']} launches ({rec['leaves']} "
+            f"leaves, bound {rec['k4_bound_ms']:.3f} ms); K2 {prof['kernels_ms']['groupnorm']:.3f}"
+            f" ms device over {prof['kernel_launches']['groupnorm']} launches ({len(gn_sizes)} "
+            f"calls, bound {prof['k2_bound_ms']:.3f} ms); optimizer update host ms by step "
+            f"{[round(t, 3) for t in opt_ms]}  [{smi}]")
         log(f"[train {mode}] profiled step {steps}: device {prof['total_ms']:.1f} ms of "
             f"{step_s[-1] * 1e3:.1f} ms wall; the port's kernels (ms) "
             + ", ".join(f"{k} {v:.2f}" for k, v in prof["kernels_ms"].items())
@@ -820,7 +1044,7 @@ def phase_train(mode, config, steps, profile, smi):
         raise RuntimeError(f"train {mode}: the training path skipped a kernel: {counts}")
     return dict(mode=mode, config=config, steps=steps, metrics=rec["metrics"],
                 step_s=step_s, timed_step_s=timed, profile=prof, peak_bytes=peak, tf32=tf32,
-                launches=counts,
+                launches=counts, optimizer_host_ms=opt_ms,
                 checks=rec["checks"], state_params=rec["state_params"], wall_s=wall)
 
 

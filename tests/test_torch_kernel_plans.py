@@ -1,17 +1,22 @@
-"""The Python halves of the Hopper kernels K1 and K3, on the CPU.
+"""The Python halves of the Hopper kernels K1-K4, on the CPU.
 
 What the card's kernels take is decided in Python before any launch: K3's
 tile plan (``ln_matmul.plan``: rows and columns per tile, weight stages,
-shared-memory bytes, the persistent grid's tile ranges) and K1's layout
-check (``flash_attention.layout_error``: which strided q/k/v views the TMA
-descriptors can read in place).  These tests hold both at every main-path
-shape; pure torch on the CPU, no JAX, well under a second.
+shared-memory bytes, the persistent grid's tile ranges), K1's layout check
+(``flash_attention.layout_error``: which strided q/k/v views the TMA
+descriptors can read in place), K2's route and slabs (``groupnorm.plan``)
+and K4's leaf table (``adam8bit.leaf_table``: which leaf each global block
+belongs to).  These tests hold them at every main-path shape; pure torch
+on the CPU, no JAX, well under a second.
 """
 
+import bisect
+
+import numpy as np
 import pytest
 import torch
 
-from this_and_that_vdm_tpu_torch.ops import flash_attention, ln_matmul
+from this_and_that_vdm_tpu_torch.ops import adam8bit, flash_attention, groupnorm, ln_matmul
 
 # (R, C, N) of every LN -> projection site of the VGL denoise step at CFG 2
 # (28 = 2 x 14 frames): levels 1-3 and the level-4 mid block, N = C (the
@@ -121,3 +126,141 @@ def test_flash_layout_refuses_what_tma_cannot_read():
     wide = torch.zeros((2, 384, 10, 128), dtype=torch.bfloat16)[..., ::2]
     assert "unit stride" in flash_attention.layout_error(wide, wide, wide)
 
+
+
+# K2: every distinct folded [N, S, C] of the 152 GroupNorm calls of the VGL
+# denoise step at CFG 2 (bf16; rank-5 sites fold frames into S), the VAE
+# decoder's at chunk 8, and the batch-1 train steps' (14 frames; fp32 in
+# the GestureNet and the VL UNet, bf16 in the frozen VGL UNet)
+_DENOISE_GN = [(28, 1536, 960), (28, 1536, 640), (28, 384, 1920), (28, 1536, 320),
+               (2, 21504, 320), (28, 384, 1280), (28, 384, 960), (28, 384, 640),
+               (2, 5376, 640), (28, 96, 2560), (28, 96, 1920), (28, 384, 320),
+               (28, 96, 1280), (2, 1344, 1280), (28, 96, 640), (28, 24, 2560),
+               (28, 24, 1280), (2, 336, 1280)]
+_VAE_GN = [(8, 98304, 256), (8, 24576, 512), (8, 98304, 128), (1, 786432, 128),
+           (8, 24576, 256), (1, 196608, 256), (8, 6144, 512), (1, 49152, 512),
+           (8, 1536, 512), (1, 12288, 512)]
+_TRAIN_GN = [(14, 1536, 320), (1, 21504, 320), (14, 384, 640), (1, 5376, 640),
+             (14, 96, 1280), (1, 1344, 1280), (14, 24, 1280), (1, 336, 1280),
+             (14, 1536, 640), (14, 1536, 960), (14, 384, 1920), (14, 96, 2560)]
+_GN_CASES = ([(shape, 2) for shape in _DENOISE_GN + _VAE_GN + _TRAIN_GN]
+             + [(shape, 4) for shape in _TRAIN_GN])
+_SHARED = 132 * (groupnorm.SMEM_LIMIT - 1024)  # bytes the card holds resident
+
+
+def _gn_expected_route(n, s, c, itemsize):
+    """Resident iff the tensor, cut into 132 equal slabs of whole rows,
+    fits beside each block's reduction buffers."""
+    return n * s * c * itemsize <= 27_600_000
+
+
+@pytest.mark.parametrize("shape,itemsize", _GN_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{'bf16' if i == 2 else 'fp32'}"
+                              for s, i in _GN_CASES])
+def test_groupnorm_plan_route_fits_and_slabs_cover(shape, itemsize):
+    n, s, c = shape
+    rows, groups = n * s, 32
+    p = groupnorm.plan(n, s, c, groups, itemsize)
+    # the route: every site of at most 27.5 MB stays in shared memory
+    assert p.resident == _gn_expected_route(n, s, c, itemsize)
+    lanes = min(c * itemsize // 16, groupnorm.THREADS)
+    red = 4 * (2 * (groupnorm.THREADS // lanes) * c + 2 * groups * p.kmax)
+    if p.resident:
+        assert p.grid <= 132 and p.smem == p.rows_per_block * c * itemsize + red
+        assert p.smem <= groupnorm.SMEM_LIMIT - 1024
+        assert rows * c * itemsize <= _SHARED
+    else:
+        assert p.grid <= 132 * groupnorm.STREAMED_BLOCKS_PER_SM and p.smem == red
+    # each row (so each element) lies in exactly one non-empty slab
+    rpb = p.rows_per_block
+    slabs = [(b * rpb, min(rows, (b + 1) * rpb)) for b in range(p.grid)]
+    assert slabs[0][0] == 0 and slabs[-1][1] == rows
+    assert all(a < b for a, b in slabs) and all(x[1] == y[0] for x, y in zip(slabs, slabs[1:]))
+    # segments: a block's batch rows fit its kmax scratch slots, and the
+    # combine of batch row m reads exactly the blocks whose slab meets it
+    meets = {}
+    for b, (r0, r1) in enumerate(slabs):
+        first = r0 // s
+        assert (r1 - 1) // s - first < p.kmax
+        for m in range(first, (r1 - 1) // s + 1):
+            meets.setdefault(m, []).append(b)
+    assert sorted(meets) == list(range(n))
+    for m, blocks in meets.items():
+        lo, hi = m * s // rpb, (m * s + s - 1) // rpb  # the kernel's formulas
+        assert blocks == list(range(lo, hi + 1))
+        assert all(m - b * rpb // s < p.kmax for b in blocks)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_groupnorm_plan_chunks_cover_a_resident_slab(itemsize):
+    """The resident slab goes in as up to 8 bulk copies of whole rows, of
+    at least 16 KB where the slab allows (the kernel's split), each a
+    multiple of 16 bytes, none empty."""
+    for n, s, c in _DENOISE_GN + _TRAIN_GN:
+        p = groupnorm.plan(n, s, c, 32, itemsize)
+        if not p.resident:
+            continue
+        for b in range(p.grid):
+            nrows = min(n * s, (b + 1) * p.rows_per_block) - b * p.rows_per_block
+            count = max(1, min(8, nrows * c * itemsize // 16384))
+            crows = -(-nrows // count)
+            chunks = [(j * crows, min(nrows, (j + 1) * crows)) for j in range(count)
+                      if j * crows < nrows]
+            assert chunks[-1][1] == nrows and all(a < b for a, b in chunks)
+            assert all((b - a) * c * itemsize % 16 == 0 for a, b in chunks)
+
+
+def test_groupnorm_plan_small_tensors_take_fewer_blocks():
+    p = groupnorm.plan(2, 16, 64, 32, 2)
+    assert p.resident and p.grid == 1 and p.rows_per_block == 32 and p.kmax == 2
+    assert groupnorm.plan(28, 24, 1280, 32, 2).grid < 132
+
+
+def _kernel_search(first, blk):
+    """csrc/adam8bit.cu's binary search, as written there: the last leaf
+    whose first block is <= blk (an empty leaf shares its first block with
+    the next one)."""
+    lo, hi = 0, len(first) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if first[mid] <= blk:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+# a ragged tree: a 1-block leaf, exact blocks, a 513-element leaf, a
+# >= 40-block leaf, empty leaves (one last)
+_NUMELS = [200, 256, 257, 513, 0, 40 * 256 + 17, 1, 3000, 0]
+
+
+def test_adam8bit_leaf_table_covers_every_element_once():
+    first, total = adam8bit.leaf_blocks(_NUMELS)
+    nbs = [-(-n // 256) for n in _NUMELS]
+    assert total == sum(nbs) and first == list(np.cumsum([0] + nbs[:-1]))
+    seen = [np.zeros(n, np.int64) for n in _NUMELS]
+    for blk in range(total):
+        leaf = _kernel_search(first, blk)
+        assert leaf == bisect.bisect_right(first, blk) - 1 and _NUMELS[leaf] > 0
+        local = blk - first[leaf]
+        assert 0 <= local < nbs[leaf]
+        # a lane reads the gradient up to numel; past it the block is padding
+        seen[leaf][local * 256:min(_NUMELS[leaf], (local + 1) * 256)] += 1
+    assert all((v == 1).all() for v in seen)
+
+
+def test_adam8bit_leaf_table_rows():
+    gs = [torch.zeros(n) for n in _NUMELS]
+    q = [torch.zeros(-(-n // 256) * 256, dtype=torch.uint8) for n in _NUMELS]
+    sc = [torch.zeros(-(-n // 256)) for n in _NUMELS]
+    q2 = [t.clone() for t in q]
+    sc2 = [t.clone() for t in sc]
+    steps = [torch.zeros(n) for n in _NUMELS]
+    rows = adam8bit.leaf_table(gs, q, sc, q2, sc2, steps)
+    assert rows.shape == (len(_NUMELS), 8) and rows.dtype == np.int64
+    for j, ts in enumerate((gs, q, sc, q2, sc2)):
+        assert rows[:, j].tolist() == [t.data_ptr() for t in ts]
+    assert rows[:, 5].tolist() == _NUMELS
+    assert rows[:, 6].tolist() == adam8bit.leaf_blocks(_NUMELS)[0]
+    assert rows[:, 7].tolist() == [t.data_ptr() for t in steps]

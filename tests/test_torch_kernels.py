@@ -128,6 +128,52 @@ def test_groupnorm_kernel_constant_input_is_finite(dev):
     assert (got.float() - b).abs().max().item() < 2e-2
 
 
+def _gn_route(x):
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
+    return groupnorm.plan(n, s, c, 32, x.element_size(),
+                          torch.cuda.get_device_properties(x.device).multi_processor_count)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,eps,silu", [((28, 1536, 320), 1e-6, True),
+                                            ((2, 14, 32, 48, 320), 1e-6, True),
+                                            ((28, 24, 1280), 1e-5, True),
+                                            ((28, 1536, 640), 1e-6, True),
+                                            ((8, 98304, 128), 1e-6, False),
+                                            ((3, 7, 2560), 1e-6, False)])
+def test_groupnorm_kernel_both_routes(dev, dtype, shape, eps, silu):
+    """The resident route (the tensor held in shared memory across the grid
+    barrier) and the streamed one, at denoise-step and VAE decoder shapes;
+    the route is the plan's, one launch either way."""
+    x = _randn(shape, dtype, dev, 0) * 2 + 0.5
+    c = shape[-1]
+    w, b = _randn((c,), torch.float32, dev, 1), _randn((c,), torch.float32, dev, 2)
+    resident = x.numel() * x.element_size() <= 27_600_000
+    assert _gn_route(x).resident == resident
+    ops.reset_launch_counts()
+    got = groupnorm.group_norm(x, w, b, 32, eps, silu)
+    want = groupnorm._plain(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert groupnorm.launches == 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < BOUND[dtype]
+
+
+@pytest.mark.parametrize("shape", [(2, 512, 320), (28, 1536, 640)], ids=["resident", "streamed"])
+def test_groupnorm_kernel_constant_input_both_routes(dev, shape):
+    x = torch.full(shape, 7.0, device=dev, dtype=torch.bfloat16)
+    assert _gn_route(x).resident == (shape[1] == 512)
+    c = shape[-1]
+    w = torch.ones(c, device=dev)
+    b = torch.linspace(-1, 1, c, device=dev)
+    got = groupnorm.group_norm(x, w, b, 32, 1e-6, False)
+    want = groupnorm._plain(x, w, b, 32, 1e-6, False)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - b).abs().max().item() < 2e-2
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,c,n,bias", [(3000, 320, 960, False), (1000, 320, 2560, True),
                                         (384, 1280, 10240, True), (77, 64, 40, True),
@@ -234,6 +280,47 @@ def test_adam8bit_kernel(dev, nb, valid, t):
     check_k4(got, want)
     if valid is not None:  # the padded tail keeps the zero codes
         assert (got[1].view(-1)[valid:] == 127).all() and (got[3].view(-1)[valid:] == 0).all()
+
+
+@pytest.mark.parametrize("t", [1, 1000])
+def test_adam8bit_tree_one_launch(dev, t):
+    """Every leaf of a ragged tree (a 1-block leaf, a 513-element leaf, a
+    41-block leaf, empty leaves, a 51,200-block leaf) in one launch, held
+    leaf by leaf against the per-leaf plain version."""
+    numels = [200, 513, 0, 40 * 256 + 17, 256, 1, 51200 * 256, 3000, 0]
+    gs, mqs, mss, nqs, nss = [], [], [], [], []
+    for i, n in enumerate(numels):
+        nb = -(-n // 256)
+        g, mq, ms, nq, ns = _k4_inputs(dev, max(nb, 1), 20 + i, n)
+        gs.append(g.view(-1)[:n].clone())
+        for lst, v in zip((mqs, mss, nqs, nss), (mq.view(-1)[:nb * 256], ms[:nb],
+                                                 nq.view(-1)[:nb * 256], ns[:nb])):
+            lst.append(v.clone())
+    bc = adam8bit.bias_corrections(t, 0.9, 0.999)
+    ops.reset_launch_counts()
+    got = adam8bit.adam8bit_leaves(gs, mqs, mss, nqs, nss, bc)
+    want = adam8bit._plain_leaves(gs, mqs, mss, nqs, nss, bc, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert adam8bit.launches == 1
+    for i, n in enumerate(numels):
+        assert got[0][i].shape == (n,) and got[2][i].shape == (-(-n // 256),)
+    # the K4 bounds over the tree: codes off on under 0.1% of all its codes
+    # (one code of a one-block leaf is 0.2% of that leaf), the rest leaf by leaf
+    full = [i for i, n in enumerate(numels) if n]
+    check_k4([torch.cat([o[i] for i in full]) for o in got],
+             [torch.cat([o[i] for i in full]) for o in want])
+    for i in full:
+        rel = ((got[0][i] - want[0][i]).abs().max() / want[0][i].abs().max()).item()
+        assert rel < 1e-5, (i, rel)
+        # the padded tail keeps the zero codes
+        assert (got[1][i][numels[i]:] == 127).all() and (got[3][i][numels[i]:] == 0).all()
+    # the steps written over the gradients themselves, as the optimizer does
+    inplace = [g.clone() for g in gs]
+    again = adam8bit.adam8bit_leaves(inplace, mqs, mss, nqs, nss, bc, out=inplace)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(again[0], inplace))
+    for a, b in zip(again, got):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_adam8bit_wrapper_raises(dev):

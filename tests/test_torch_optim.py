@@ -103,6 +103,63 @@ def test_k4_plain_matches_jax_kernel_and_jnp_path():
         _, mq, ms, nq, ns = kern
 
 
+def test_k4_tree_plain_matches_jax_kernel_and_jnp_path():
+    """Three chained updates of a ragged tree (a 1-block leaf, a 513-element
+    leaf, a 41-block leaf, ...) through the port's tree update
+    (``adam8bit_leaves``, one call; its plain version on the CPU), held leaf
+    by leaf against JAX's Pallas kernel (interpret mode, on the leaf padded to
+    whole blocks) and the JAX jnp path, at the tolerances of
+    ``test_k4_plain_matches_jax_kernel_and_jnp_path``.  The JAX kernel's
+    state carries over; the padded tail keeps the zero codes."""
+    numels, b1, b2, eps = [200, 513, 40 * 256 + 17, 256, 1000], 0.9, 0.999, 1e-8
+    rng = np.random.RandomState(5)
+    nbs = [-(-n // 256) for n in numels]
+    mqs = [np.full((nb, 256), 127, np.uint8) for nb in nbs]
+    nqs = [np.zeros((nb, 256), np.uint8) for nb in nbs]
+    mss = [np.zeros(nb, np.float32) for nb in nbs]
+    nss = [np.zeros(nb, np.float32) for nb in nbs]
+    jnp_state = jopt.scale_by_adam8bit(b1, b2, eps, kernel=False)
+    for t in range(1, 4):
+        # magnitudes drawn per block, as in the one-leaf test above
+        gs = [(rng.randn(nb, 256) * 10.0 ** rng.uniform(-4, -1, (nb, 1))).astype(np.float32)
+              .reshape(-1)[:n] for n, nb in zip(numels, nbs)]
+        cf = jnp.float32(t)
+        bc = jnp.stack([1 - b1 ** cf, 1 - b2 ** cf]).reshape(1, 2)
+        got = adam8bit.adam8bit_leaves(
+            [torch.from_numpy(g) for g in gs], [torch.from_numpy(q.reshape(-1)) for q in mqs],
+            [torch.from_numpy(x) for x in mss], [torch.from_numpy(q.reshape(-1)) for q in nqs],
+            [torch.from_numpy(x) for x in nss], tuple(float(x) for x in np.asarray(bc)[0]),
+            b1, b2, eps)
+        for i, (g, n, nb) in enumerate(zip(gs, numels, nbs)):
+            g2d = np.pad(g, (0, nb * 256 - n)).reshape(nb, 256)
+            kern = [np.asarray(o) for o in jk4._leaf_call(
+                jnp.asarray(bc), jnp.asarray(g2d), jnp.asarray(mqs[i]),
+                jnp.asarray(mss[i][:, None]), jnp.asarray(nqs[i]), jnp.asarray(nss[i][:, None]),
+                b1=b1, b2=b2, eps=eps, interpret=True)]
+            state = jopt.Adam8bitState(
+                count=jnp.int32(t - 1),
+                mu=jopt._Q(jnp.asarray(mqs[i].reshape(-1)), jnp.asarray(mss[i])),
+                nu=jopt._Q(jnp.asarray(nqs[i].reshape(-1)), jnp.asarray(nss[i])))
+            jstep, jstate = jnp_state.update(jnp.asarray(g), state)
+            jnp_out = [np.asarray(jstep).reshape(-1), np.asarray(jstate.mu.q),
+                       np.asarray(jstate.mu.scale), np.asarray(jstate.nu.q),
+                       np.asarray(jstate.nu.scale)]
+            kern_out = [kern[0].reshape(-1)[:n], kern[1].reshape(-1), kern[2].reshape(-1),
+                        kern[3].reshape(-1), kern[4].reshape(-1)]
+            mine = [o[i].numpy() for o in got]
+            assert mine[0].shape == (n,) and mine[1].shape == (nb * 256,)
+            assert mine[2].shape == (nb,)
+            for want in (kern_out, jnp_out):
+                np.testing.assert_allclose(mine[0], want[0], rtol=0, atol=1e-6)
+                _codes_close(mine[1], want[1], 1e-3)
+                _codes_close(mine[3], want[3], 1e-3)
+                np.testing.assert_allclose(mine[2], want[2], rtol=1e-6)
+                np.testing.assert_allclose(mine[4], want[4], rtol=1e-6)
+            assert (mine[1][n:] == 127).all() and (mine[3][n:] == 0).all()
+            mqs[i], mss[i] = kern[1], kern[2].reshape(-1)
+            nqs[i], nss[i] = kern[3], kern[4].reshape(-1)
+
+
 def test_bias_corrections_match_jax():
     for t in (1, 2, 7, 1000):
         cf = jnp.float32(t)

@@ -33,15 +33,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, B, S, H, D, batch stride, row stride, scale, is_bf16, stream
     "ttv_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P],
-    # x, ws, N, S, C, G, rows_per_block, is_bf16, stream
-    "ttv_groupnorm_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, ws, gamma, beta, y, N, S, C, G, eps, silu, blocks_per_row, is_bf16, stream
-    "ttv_groupnorm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # x, gamma, beta, y, part, rows, S, C, G, eps, silu, rows_per_block, kmax, grid,
+    # resident, smem, is_bf16, stream
+    "ttv_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, w, wb, out, scratch, R, C, N, eps, is_bf16, wm (fp32: the
     # configuration), stages, grid, smem, stream
     "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
-    # g, mq, ms, nq, ns, step, mq2, ms2, nq2, ns2, nb, hyper (17 floats), stream
-    "ttv_adam8bit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_F), _P],
+    # leaf table, n_leaves, total_blocks, mq2, ms2, nq2, ns2, hyper (17 floats),
+    # max_grid, stream
+    "ttv_adam8bit_multi": [_P, _I, _I, _P, _P, _P, _P, ctypes.POINTER(_F), _I, _P],
 }
 
 _lock = threading.Lock()

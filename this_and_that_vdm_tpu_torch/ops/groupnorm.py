@@ -3,13 +3,21 @@
 Counterpart of ``this_and_that_vdm_tpu/ops/groupnorm_pallas.py`` (the Pallas
 ``_kernel`` launched by ``_gn_pallas``) and of the plain
 ``models/layers._group_norm`` it is held against.  The TPU kernel keeps one
-[S, C] batch row in VMEM; the CUDA kernel splits each row's reduction over
-many blocks (fp32 sums into an [N, G, 2] workspace with atomics) and then
-applies the per-channel affine in a second elementwise pass, so it takes
-every GroupNorm of the slice, the full-resolution VAE decoder sites
-included.  See the source's header for the design.  Bound: bytes — three
-passes (read, read, write) of the tensor, 82.6 MB at ``[28, 1536, 320]``
-bf16.
+[S, C] batch row in VMEM and reads it once.  The CUDA kernel is one
+cooperative launch over contiguous slabs of rows, one slab a block, whose
+per-(row, group) partial sums meet across one grid barrier; :func:`plan`
+picks its route by shape before the launch:
+
+- **resident**: the tensor fits in the card's shared memory (one block an
+  SM, slab + reduction buffers within 227 KB): one read and one write, as on
+  the TPU.  Every denoise-step site up to 27.5 MB and the batch-1 fp32
+  train sites take it.
+- **streamed**: anything larger (the 55-83 MB skip-concat sites, the VAE
+  decoder): two blocks an SM, the slab read for the statistics and again,
+  in reverse, for the output.
+
+There is no fallback from one route to the other: a refused launch raises.
+Bound: bytes, one read and one write (55.1 MB at ``[28, 1536, 320]`` bf16).
 
 ``group_norm`` is the wrapper used by every GroupNorm of the port: on a CPU
 tensor it takes the plain version, on a CUDA tensor it launches the kernel
@@ -20,6 +28,9 @@ version and differentiates it (``_autograd``).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -27,10 +38,53 @@ from . import _autograd, _native
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-_THREADS = 256
-_MAX_CHANNELS = 4096
-_STATS_ROWS = 64  # positions per stats block
-_APPLY_BLOCKS = 264  # blocks per batch row in the apply pass (2 x 132 SMs)
+THREADS = 256  # a block (csrc/groupnorm.cu)
+MAX_CHANNELS = 4096  # 16 channels a thread
+SMEM_LIMIT = 232448  # shared memory a block can use on sm_90
+_STATIC_SMEM = 1024  # the kernel's mbarriers, with room to spare
+MIN_SLAB = 16384  # bytes a resident block holds at least (small tensors take fewer SMs)
+STREAMED_BLOCKS_PER_SM = 2  # the streamed kernel's __launch_bounds__
+
+
+class Plan(NamedTuple):
+    resident: bool
+    grid: int  # blocks, all resident at once
+    rows_per_block: int  # block b owns rows [b * rpb, min(rows, (b + 1) * rpb))
+    kmax: int  # batch rows (segments) a block touches at most
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def _kmax(rows: int, s: int, rpb: int) -> int:
+    """Batch rows a slab of ``rpb`` rows meets at most."""
+    return max((min(rows, (b + 1) * rpb) - 1) // s - b * rpb // s + 1
+               for b in range(-(-rows // rpb)))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, s: int, c: int, groups: int, itemsize: int, sms: int = 132) -> Plan:
+    """How the kernel takes ``[n, s, c]`` of ``itemsize``-byte elements on a
+    card with ``sms`` SMs: resident when each block's slab of rows plus its
+    reduction buffers fit in one SM's shared memory, else streamed."""
+    rows, row_bytes = n * s, c * itemsize
+    lanes = min(c // (16 // itemsize), THREADS)  # threads across one row
+    rif = THREADS // lanes  # rows walked at once
+
+    def small(kmax):  # per-channel partials, then (mean, rstd) per segment and group
+        return 4 * (2 * rif * c + 2 * groups * kmax)
+
+    grid = max(1, min(sms, -(-rows * row_bytes // MIN_SLAB), rows))
+    rpb = -(-rows // grid)
+    kmax = _kmax(rows, s, rpb)
+    if rpb * row_bytes + small(kmax) <= SMEM_LIMIT - _STATIC_SMEM:
+        return Plan(True, -(-rows // rpb), rpb, kmax, rpb * row_bytes + small(kmax))
+    rpb = -(-rows // min(sms * STREAMED_BLOCKS_PER_SM, rows))
+    kmax = _kmax(rows, s, rpb)
+    return Plan(False, -(-rows // rpb), rpb, kmax, small(kmax))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _group_norm(x, weight, bias, num_groups: int, eps: float):
@@ -65,16 +119,13 @@ def _launch(x, weight, bias, num_groups, eps, with_silu):
     global launches
     n, c = x.shape[0], x.shape[-1]
     s = x.numel() // (n * c)
-    ws = torch.zeros((n, num_groups, 2), device=x.device, dtype=torch.float32)
+    p = plan(n, s, c, num_groups, x.element_size(), _sm_count(x.device.index))
+    part = torch.empty((p.grid * p.kmax * num_groups * 2,), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    stream = _native.stream_ptr(x)
-    _native.launch("ttv_groupnorm_stats", x.data_ptr(), ws.data_ptr(), n, s, c,
-                   num_groups, _STATS_ROWS, is_bf16, stream)
-    blocks = max(1, min(_APPLY_BLOCKS, -(-s * c // (8 * _THREADS))))
-    _native.launch("ttv_groupnorm_apply", x.data_ptr(), ws.data_ptr(), weight.data_ptr(),
-                   bias.data_ptr(), y.data_ptr(), n, s, c, num_groups, float(eps),
-                   int(with_silu), blocks, is_bf16, stream)
+    _native.launch("ttv_groupnorm", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                   y.data_ptr(), part.data_ptr(), n * s, s, c, num_groups, float(eps),
+                   int(with_silu), p.rows_per_block, p.kmax, p.grid, int(p.resident), p.smem,
+                   int(x.dtype == torch.bfloat16), _native.stream_ptr(x))
     launches += 1
     return y
 
@@ -105,14 +156,16 @@ def group_norm(x, weight, bias, num_groups: int, eps: float, with_silu: bool = F
     if not x.is_contiguous():
         raise ValueError("group_norm: x must be contiguous (channels-last)")
     n, c = x.shape[0], x.shape[-1]
+    if x.numel() == 0:
+        raise ValueError(f"group_norm: empty input {tuple(x.shape)}")
     s = x.numel() // (n * c)
-    if c % num_groups or c % 8 or c > _MAX_CHANNELS:
+    if c % num_groups or c % 8 or c > MAX_CHANNELS:
         raise ValueError(f"group_norm: C={c} with G={num_groups} (C % G == 0, "
-                         f"C % 8 == 0, C <= {_MAX_CHANNELS})")
+                         f"C % 8 == 0, C <= {MAX_CHANNELS})")
     if x.data_ptr() % 16:
         raise ValueError("group_norm: x must be 16-byte aligned")
-    if s * c >= 2**31:
-        raise ValueError(f"group_norm: batch row of {s * c} elements exceeds 2^31")
+    if n * s >= 2**30:
+        raise ValueError(f"group_norm: {n * s} positions exceed 2^30")
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("group_norm: weight and bias must be [C]")
     weight = weight.to(device=x.device, dtype=torch.float32).contiguous()

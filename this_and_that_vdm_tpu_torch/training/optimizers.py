@@ -14,8 +14,8 @@ package to rounding.
 as unsigned codes of the closed-form log codebook (``ops/quant8.py``), one
 uint8 per element padded to whole 256-element blocks, plus one fp32 absmax
 scale per block, ``Q(q uint8 [nb * 256], scale fp32 [nb])``.  The update of
-one leaf is K4 (``ops/adam8bit.py``): the Hopper kernel on CUDA, its plain
-version on the CPU.
+every leaf is one K4 call (``ops/adam8bit.py``): one Hopper launch on CUDA,
+its plain version on the CPU.
 
 Blocks run over the torch flattening of each parameter (dense ``(O, I)``,
 conv ``(O, I, H, W)``), as the reference's bitsandbytes optimizer blocks
@@ -105,8 +105,10 @@ def scale_by_learning_rate(schedule) -> GradientTransformation:
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(updates, state, params):
+        # in place: the 8-bit step of every leaf is a view of one arena, which
+        # a new tensor a leaf would keep alive beside a second full copy
         for k in updates:
-            updates[k] = updates[k] + params[k].detach() * weight_decay
+            updates[k] = updates[k].add_(params[k].detach() * weight_decay)
         return updates, state
 
     return GradientTransformation(lambda params: (), update)
@@ -183,8 +185,9 @@ class Adam8bitState(NamedTuple):
 
 
 def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """8-bit Adam moments and step, one K4 call per leaf (every leaf; the
-    ragged last block is padded with zero gradient and the zero codes)."""
+    """8-bit Adam moments and step of every leaf in one K4 call (one launch
+    on CUDA); the new moments are views of the call's arenas; on CUDA the
+    steps overwrite the gradients."""
     def init(params):
         zeros = lambda p, s: _quantize(torch.zeros_like(p, dtype=torch.float32), s)  # noqa: E731
         return Adam8bitState(0, {k: zeros(p, True) for k, p in params.items()},
@@ -193,18 +196,20 @@ def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     def update(updates, state, params=None):
         count = state.count + 1
         bc = k4.bias_corrections(count, b1, b2)
-        mu, nu = {}, {}
-        for k, g in updates.items():
-            mq, nq = state.mu[k], state.nu[k]
-            nb = mq.scale.shape[0]
-            gf = g.reshape(-1).float()
-            g2d = F.pad(gf, (0, nb * BLOCK - gf.numel())).reshape(nb, BLOCK)
-            step, mq2, ms2, nq2, ns2 = k4.adam8bit_update(
-                g2d, mq.q.reshape(nb, BLOCK), mq.scale, nq.q.reshape(nb, BLOCK), nq.scale,
-                bc, b1, b2, eps)
-            updates[k] = step.reshape(-1)[:g.numel()].reshape(g.shape)
-            mu[k], nu[k] = Q(mq2.reshape(-1), ms2), Q(nq2.reshape(-1), ns2)
-        return updates, Adam8bitState(count, mu, nu)
+        keys = list(updates)
+        mu, nu = [state.mu[k] for k in keys], [state.nu[k] for k in keys]
+        gs = [updates[k].reshape(-1).float() for k in keys]
+        # on the card each step overwrites its gradient (the chain owns
+        # ``updates``): no second tree-sized buffer beside the gradients
+        steps, mq2, ms2, nq2, ns2 = k4.adam8bit_leaves(
+            gs, [q.q for q in mu], [q.scale for q in mu], [q.q for q in nu],
+            [q.scale for q in nu], bc, b1, b2, eps,
+            out=gs if gs and gs[0].is_cuda else None)
+        for i, k in enumerate(keys):
+            updates[k] = steps[i].view(updates[k].shape)
+        return updates, Adam8bitState(
+            count, {k: Q(mq2[i], ms2[i]) for i, k in enumerate(keys)},
+            {k: Q(nq2[i], ns2[i]) for i, k in enumerate(keys)})
 
     return GradientTransformation(init, update)
 

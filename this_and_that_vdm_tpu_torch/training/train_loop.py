@@ -138,7 +138,7 @@ _ZERO_INIT = ("conv_in_concat", "controlnet_down_blocks", "controlnet_mid_block"
 
 
 def build_models(cfg: dict, mode: str, tiny: bool = False, nano: bool = False,
-                 frozen_dtype: torch.dtype = torch.float32, device="cpu",
+                 frozen_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
     """(unet, controlnet or None, {vae, image_encoder, text_encoder}) with
     seeded random weights on ``device``: the frozen towers (and the VGL UNet)
