@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's VGL clip and its VGL / VL training once on one
-CUDA card, with its kernels.
+"""Drive the PyTorch port's VGL clip, its entry points (weight loading, the
+server, the batch-inference CLI) and its VGL / VL training once on one CUDA
+card, with its kernels.
 
     python3 chip_smoke.py
 
@@ -40,6 +41,19 @@ Phases (any failure raises and exits nonzero):
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
                  counters show every kernel ran on that path
+  8. entry       (runs after phase 5, before the training phases) the phase-5
+                 models written through weights/export as an HF-layout fp16
+                 tree with a tokenizer folder, loaded back through
+                 weights/loader.load_pretrained (every tensor bit for bit
+                 against its fp16-rounded original); three requests from
+                 three threads through serving.VideoGenServer (25 steps,
+                 gestures rasterised by data/rasterize, prompts through the
+                 port's tokenizer): shapes, finite latents, queue wait and
+                 latency; a served 4-step request bit for bit against a direct
+                 call; a batch of two against each served alone (latents
+                 rel L2, PSNR, one pipeline call); cli.inference.main over two
+                 instances (im_0.jpg as PNG bytes); the launch counters of the
+                 serve and CLI paths must show K1-K3
   6. VGL train   training.train_loop.main on config/train_image2video_gesturenet.yaml
                  as written (14x256x384, batch 1, remat, bf16 frozen towers
                  and UNet, fp32 GestureNet, 8-bit AdamW, clip 1.0), 3 steps
@@ -51,7 +65,7 @@ Phases (any failure raises and exits nonzero):
                  UNet trains in fp32), 3 steps, the last one profiled
 
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the phases 5-7, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-8, each counted from zero), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -874,6 +888,275 @@ def phase_slice(pipe, smi):
     return counts, stages, peak
 
 
+# ----------------------------------------------------------------- phase 8
+
+ENTRY = dict(serve_steps=25, check_steps=4, seeds=(7, 8, 9), original=(480, 640))
+PROMPTS = ("pick up the red block", "push the cup to the left", "open the drawer")
+ENTRY_GESTURES = ([(0, 320.0, 240.0)], [(0, 200.0, 150.0), (F - 1, 430.0, 300.0)],
+                  [(0, 500.0, 330.0), (F - 1, 150.0, 120.0)])
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def tree_parent(pipe):
+    """The temporary directory if it has room for the fp16 tree (2 bytes a
+    parameter, 10% spare), else the checkout's gitignored build/."""
+    need = 2.2 * sum(p.numel() for m in (pipe.unet, pipe.controlnet, pipe.vae,
+                                         pipe.image_encoder, pipe.text_encoder)
+                     for p in m.parameters())
+    if shutil.disk_usage(tempfile.gettempdir()).free > need:
+        return None
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    return build
+
+
+def write_tree(pipe, root, smi):
+    """The pipeline's five models through the port's writer, as an HF-layout
+    fp16-variant tree with a tokenizer folder; returns the expected state of
+    each model after the trip through fp16 (on the card)."""
+    from this_and_that_vdm_tpu_torch.cli import rehearsal
+    from this_and_that_vdm_tpu_torch.weights.export import save_hf_layout
+
+    models = dict(unet=pipe.unet, gesturenet=pipe.controlnet, vae=pipe.vae,
+                  image_encoder=pipe.image_encoder, text_encoder=pipe.text_encoder)
+    free = shutil.disk_usage(root).free
+    log(f"[entry] free disk space at the tree's directory: {free / 2**30:.2f} GiB  [{smi}]")
+    t0 = time.perf_counter()
+    for name, m in models.items():
+        save_hf_layout(m, root, name, variant="fp16")
+    rehearsal._write_tokenizer(root)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    log(f"[entry] wrote the fp16 tree: {nbytes} bytes in {write_s:.3f} s "
+        f"({nbytes / write_s / 1e9:.3f} GB/s)  [{smi}]")
+    expected = {name: {k: t.to(torch.float16).float().to(t.dtype) for k, t in
+                       m.state_dict().items()} for name, m in models.items()}
+    return expected, dict(bytes=nbytes, write_s=write_s, free_bytes=free)
+
+
+def gif_frames(path):
+    """(frames, width, height) of a GIF, from its blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise RuntimeError(f"{path}: not a GIF")
+    w, h, flags = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little"), data[10]
+    pos, frames = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0), 0
+
+    def skip_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            frames += 1
+            local = data[pos + 9]
+            pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
+            pos = skip_blocks(pos + 1)
+        else:
+            raise RuntimeError(f"{path}: unexpected GIF block {data[pos]:#x}")
+    return frames, w, h
+
+
+class CountingPipe:
+    """The pipeline, with each call's batch size recorded."""
+
+    def __init__(self, pipe):
+        self.pipe, self.calls = pipe, []
+
+    @property
+    def device(self):
+        return self.pipe.device
+
+    def __call__(self, images, *args, **kw):
+        self.calls.append(len(images))
+        return self.pipe(images, *args, **kw)
+
+
+def instance_image(seed, hw):
+    """A smooth seeded RGB uint8 image at ``hw``: coarse noise, bicubic up."""
+    from this_and_that_vdm_tpu_torch.data.image import resize_bicubic
+
+    coarse = (np.random.RandomState(seed).rand(6, 8, 3) * 255).astype(np.uint8)
+    return resize_bicubic(coarse, *hw)
+
+
+def write_instances(root, n=2):
+    """``n`` instance folders: ``im_0.jpg`` as PNG bytes (read by content,
+    as cv2.imread reads), ``lang.txt``, ``data.txt`` (the gestures above, at
+    the original 480x640)."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    for i in range(n):
+        d = os.path.join(root, f"Instance{i}")
+        os.makedirs(d)
+        video_io.write_png(os.path.join(d, "im_0.jpg"), instance_image(100 + i, ENTRY["original"]))
+        with open(os.path.join(d, "lang.txt"), "w") as f:
+            f.write(PROMPTS[i] + "\n")
+        with open(os.path.join(d, "data.txt"), "w") as f:
+            f.write("".join(f"{fr} {x} {y}\n" for fr, x, y in ENTRY_GESTURES[i + 1]))
+
+
+@torch.no_grad()
+def phase_entry_points(tree, expected, smi, device="cuda", dtype=torch.bfloat16,
+                       scale="full", dims=(F, H, W)):
+    """Phase 8 on the tree ``write_tree`` wrote: load it back and hold every
+    tensor bit for bit; serve three threaded requests through VideoGenServer;
+    a served request against a direct call (bit for bit); a batch of two
+    against each served alone; the batch-inference CLI over two instances.
+    Returns (report, launch counts of the serve path, of the CLI path)."""
+    import threading
+
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.cli import inference
+    from this_and_that_vdm_tpu_torch.cli.tokenizer import CLIPTokenizer
+    from this_and_that_vdm_tpu_torch.data.rasterize import rasterize_gesture_points
+    from this_and_that_vdm_tpu_torch.serving import VideoGenServer
+    from this_and_that_vdm_tpu_torch.utils import video_io
+    from this_and_that_vdm_tpu_torch.weights import loader
+
+    fr, h, w = dims
+    rep = {}
+    t0 = time.perf_counter()
+    pipe = loader.load_pretrained(tree, "vgl", device, dtype, scale=scale)
+    if device != "cpu":
+        sync()
+    rep["load_s"] = time.perf_counter() - t0
+    loaded = dict(unet=pipe.unet, gesturenet=pipe.controlnet, vae=pipe.vae,
+                  image_encoder=pipe.image_encoder, text_encoder=pipe.text_encoder)
+    n_tensors = 0
+    for name, m in loaded.items():
+        got = m.state_dict()
+        if set(got) != set(expected[name]):
+            raise RuntimeError(f"entry: {name} loaded keys differ from the written ones")
+        for k, want in expected[name].items():
+            if got[k].dtype != want.dtype or not torch.equal(_bits(got[k]), _bits(want)):
+                raise RuntimeError(f"entry: {name}.{k} is not the fp16-rounded original")
+            n_tensors += 1
+    expected.clear()
+    log(f"[entry] loaded the tree in {rep['load_s']:.3f} s; {n_tensors} tensors bit-equal to "
+        f"the fp16-rounded originals  [{smi}]")
+
+    tok = CLIPTokenizer.from_pretrained(tree)
+    images = [instance_image(s, (h, w)).astype(np.float32) / 127.5 - 1.0 for s in ENTRY["seeds"]]
+    conds = [rasterize_gesture_points(g, ENTRY["original"], (h, w), fr) for g in ENTRY_GESTURES]
+    ids = [tok([p])[0] for p in PROMPTS]
+    common = dict(num_frames=fr, decode_chunk_size=DECODE_CHUNK, output_type="uint8")
+
+    # threaded requests, one clip a call
+    ops.reset_launch_counts()
+    traces, futs, done_at, submit_at = [{} for _ in range(3)], [None] * 3, [0.0] * 3, [0.0] * 3
+    with VideoGenServer(pipe, num_inference_steps=ENTRY["serve_steps"], **common) as server:
+        def submit(i):
+            submit_at[i] = time.perf_counter()
+            futs[i] = server.submit(images[i], condition=conds[i], prompt_ids=ids[i],
+                                    seed=ENTRY["seeds"][i], trace=traces[i])
+            futs[i].add_done_callback(lambda _, i=i: done_at.__setitem__(i, time.perf_counter()))
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        outs = [f.result(timeout=900) for f in futs]
+    serve_counts = ops.launch_counts()
+    rep["serve"] = []
+    for i, (out, f, tr) in enumerate(zip(outs, futs, traces)):
+        lat = tr.pop("latents").float()
+        if out.shape != (fr, h, w, 3) or out.dtype != np.uint8:
+            raise RuntimeError(f"entry: request {i} gave {out.shape} {out.dtype}")
+        if not torch.isfinite(lat).all() or not lat.std().item() > 0:
+            raise RuntimeError(f"entry: request {i}: latents not finite or constant")
+        r = dict(seed=ENTRY["seeds"][i], points=len(ENTRY_GESTURES[i]),
+                 queue_s=f.timing["queue_s"], latency_s=done_at[i] - submit_at[i],
+                 stages={k: round(v, 4) for k, v in tr.items()}, latents_std=lat.std().item())
+        rep["serve"].append(r)
+        log(f"[entry] served request {i} ({r['points']}-point gesture, seed {r['seed']}, "
+            f"{ENTRY['serve_steps']} steps): frames {out.shape} {out.dtype}; queue wait "
+            f"{r['queue_s']:.3f} s, latency {r['latency_s']:.3f} s; stages (s) {r['stages']}; "
+            f"latents std {r['latents_std']:.4f}  [{smi}]")
+    log(f"[entry] serve path launches {serve_counts}  [{smi}]")
+
+    # a served request equals a direct call with the request's generator
+    short = dict(common, num_inference_steps=ENTRY["check_steps"])
+    with VideoGenServer(pipe, **short) as server:
+        served = server.submit(images[0], condition=conds[0], prompt_ids=ids[0],
+                               seed=ENTRY["seeds"][0]).result(timeout=900)
+    direct = pipe(images[0][None], conds[0], prompt_ids=ids[0][None],
+                  generator=torch.Generator(device=device).manual_seed(ENTRY["seeds"][0]),
+                  **short)[0]
+    rep["served_equals_direct"] = bool(np.array_equal(served, direct))
+    log(f"[entry] served ({ENTRY['check_steps']} steps) == direct call bit for bit: "
+        f"{rep['served_equals_direct']}  [{smi}]")
+    if not rep["served_equals_direct"]:
+        raise RuntimeError("entry: a served request differs from the direct call")
+
+    # a batch of two against each served alone
+    alone, alone_lat = [], []
+    with VideoGenServer(pipe, **short) as server:
+        for i in (1, 2):
+            tr = {}
+            alone.append(server.submit(images[i], condition=conds[i], prompt_ids=ids[i],
+                                       seed=ENTRY["seeds"][i], trace=tr).result(timeout=900))
+            alone_lat.append(tr["latents"].float())
+    counting, shared = CountingPipe(pipe), {}
+    with VideoGenServer(counting, max_batch=2, max_delay_s=5.0, trace=shared, **short) as server:
+        bf = [server.submit(images[i], condition=conds[i], prompt_ids=ids[i],
+                            seed=ENTRY["seeds"][i]) for i in (1, 2)]
+        batched = [f.result(timeout=900) for f in bf]
+    if counting.calls != [2]:
+        raise RuntimeError(f"entry: the batch took pipeline calls of sizes {counting.calls}")
+    rel = [((shared["latents"][j].float() - a[0]).norm() / a[0].norm()).item()
+           for j, a in enumerate(alone_lat)]
+    psnrs = [video_io.psnr(b, a) for b, a in zip(batched, alone)]
+    rep["batched"] = dict(calls=counting.calls, latents_rel_l2=rel, psnr=psnrs)
+    log(f"[entry] batch of 2 in {counting.calls} pipeline call(s): final latents rel L2 "
+        f"against served alone {[f'{x:.3e}' for x in rel]} (bound {DENOISER_REL_L2_BOUND:.0e}); "
+        f"uint8 frames PSNR {[round(x, 3) for x in psnrs]} dB  [{smi}]")
+    if not all(np.isfinite(rel)) or max(rel) > DENOISER_REL_L2_BOUND:
+        raise RuntimeError(f"entry: batched latents rel L2 {rel}")
+    del pipe, counting, server
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    # the batch-inference CLI over two instances
+    val, out = os.path.join(tree, "instances"), os.path.join(tree, "rendered")
+    write_instances(val)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = inference.main(["--pretrained", tree, "--model-type", "GestureNet", "--model-scale",
+                           scale, "--device", device, "--dtype",
+                           "bf16" if dtype == torch.bfloat16 else "f32",
+                           "--num-inference-steps", str(ENTRY["serve_steps"]),
+                           "--num-frames", str(fr), "--height", str(h), "--width", str(w),
+                           "--validation-path", val, "--store-dir", out])
+    cli_s = time.perf_counter() - t0
+    cli_counts = ops.launch_counts()
+    checks = []
+    for d in outs:
+        frames = video_io.load_frames_dir(d)
+        gif = gif_frames(os.path.join(d, "combined.gif"))
+        with open(os.path.join(d, "lang_cond.txt")) as f:
+            prompt = f.read().strip()
+        checks.append(dict(instance=os.path.basename(d), pngs=len(frames),
+                           shape=list(frames[0].shape), gif=gif, prompt=prompt))
+    rep["cli"] = dict(wall_s=cli_s, instances=checks)
+    log(f"[entry] CLI: {len(outs)} instances in {cli_s:.3f} s (load included); {checks}; "
+        f"launches {cli_counts}  [{smi}]")
+    if [c["instance"] for c in checks] != ["Instance0", "Instance1"] or not all(
+            c["pngs"] == fr and c["shape"] == [h, w, 3] and c["gif"] == (fr, w, h)
+            and c["prompt"] == PROMPTS[i] for i, c in enumerate(checks)):
+        raise RuntimeError(f"entry: CLI outputs {checks}")
+    return rep, serve_counts, cli_counts
+
+
 def _snapshot(tensors):
     """Host copies, so that the checks add nothing to the device's peak."""
     return {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
@@ -1057,10 +1340,22 @@ def main():
     pipe = build_pipeline()
     rel_l2, step = phase_denoiser(pipe)
     counts, stages, peak = phase_slice(pipe, smi)
-    del pipe
+    tree = tempfile.mkdtemp(prefix="chip_smoke_tree_", dir=tree_parent(pipe))
+    try:
+        expected, tree_rep = write_tree(pipe, tree, smi)
+        del pipe
+        torch.cuda.empty_cache()
+        entry, serve_counts, cli_counts = phase_entry_points(tree, expected, smi)
+        entry.update(tree=tree_rep)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    for path, c in (("serve", serve_counts), ("cli", cli_counts)):
+        if min(c[k] for k in INFERENCE_KERNELS) == 0:
+            raise RuntimeError(f"the {path} path skipped a kernel: {c}")
     torch.cuda.empty_cache()
     train = [phase_train(*args, smi) for args in TRAIN_CONFIGS]
-    paths = dict(slice=counts, **{f"train_{t['mode']}": t["launches"] for t in train})
+    paths = dict(slice=counts, serve=serve_counts, cli=cli_counts,
+                 **{f"train_{t['mode']}": t["launches"] for t in train})
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1076,7 +1371,7 @@ def main():
                        kernel_cases={k: v["cases"] for k, v in kern.items()},
                        backward_rel_err=backward, denoiser_rel_l2=rel_l2,
                        denoise_step_profile=step, requests=stages,
-                       peak_bytes=peak, train=train,
+                       peak_bytes=peak, entry_points=entry, train=train,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

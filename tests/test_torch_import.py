@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX, builds nothing at import, and
-a CPU tensor takes each kernel's plain version without launching anything."""
+"""The port stands alone: it imports no JAX, builds nothing at import, its
+entry-point modules work without cv2, PIL, imageio, transformers,
+safetensors or regex (the card's machine need not have them), and a CPU
+tensor takes each kernel's plain version without launching anything."""
 
 import os
 import subprocess
@@ -36,6 +38,67 @@ def test_importing_every_module_leaves_jax_out():
     out = res.stdout.strip()
     assert out.endswith("[] None"), out  # no jax/flax/JAX package; no kernel library built
     assert int(out.split(" ")[0]) >= 20, out
+
+
+# the card-path modules with the optional packages blocked: import fails
+# for each of them, as where they are not installed
+_WITHOUT_OPTIONAL = """
+import os, sys, tempfile
+BLOCKED = ("cv2", "PIL", "imageio", "transformers", "safetensors", "regex")
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from this_and_that_vdm_tpu_torch.cli import eval, inference, rehearsal, sweep, tokenizer
+from this_and_that_vdm_tpu_torch.data import bridge, image, rasterize
+from this_and_that_vdm_tpu_torch.serving import VideoGenServer
+from this_and_that_vdm_tpu_torch.utils import video_io
+from this_and_that_vdm_tpu_torch.weights import export, loader, safetensors_io
+
+d = tempfile.mkdtemp()
+ts = {"a": torch.randn(3, 5).bfloat16(), "b": torch.arange(7), "e": torch.empty(0, 2),
+      "h": torch.randn(4).half()}
+safetensors_io.save_file(ts, os.path.join(d, "x.safetensors"), {"k": "v"})
+back = safetensors_io.load_file(os.path.join(d, "x.safetensors"))
+assert all(torch.equal(back[k], ts[k]) for k in ts)
+
+rehearsal._write_tokenizer(d)
+ids = tokenizer.CLIPTokenizer.from_pretrained(d)(["Pick the red block up, it's 2 cm!"])
+assert ids.shape == (1, 77) and ids[0, 0] == 0 and 1 in ids[0]
+
+cond = rasterize.rasterize_gesture_points([(0, 30.0, 20.0), (1, 50.0, 40.0)], (48, 64),
+                                          (32, 48), 2, flip=True)
+assert cond.shape == (2, 32, 48, 3) and np.isfinite(cond).all() and cond.max() <= 1.0 + 1e-6
+
+rgb = (np.arange(16 * 24 * 3) % 256).astype(np.uint8).reshape(16, 24, 3)
+inst = os.path.join(d, "inst")
+os.makedirs(inst)
+video_io.write_png(os.path.join(inst, "im_0.jpg"), rgb)  # PNG bytes under the .jpg name
+assert np.array_equal(video_io.read_png(os.path.join(inst, "im_0.jpg")), rgb)
+assert image.image_size(os.path.join(inst, "im_0.jpg")) == (16, 24)
+img = inference._load_instance_image(inst, 8, 12)
+assert img.shape == (8, 12, 3) and -1.0 <= img.min() and img.max() <= 1.0
+video_io.export_gif([rgb, rgb[::-1]], os.path.join(d, "a.gif"))
+
+with open(os.path.join(d, "fake.jpg"), "wb") as f:
+    f.write(bytes([0xFF, 0xD8, 0xFF, 0xE0]) + bytes(16))
+try:
+    video_io.read_image(os.path.join(d, "fake.jpg"))
+    raise AssertionError("a JPEG was read with no decoder")
+except RuntimeError as e:
+    assert "cv2" in str(e) and "PIL" in str(e), e
+bad = sorted(m for m in sys.modules if m in ("jax", "this_and_that_vdm_tpu")
+             or (m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
+print("ok", bad)
+"""
+
+
+def test_entry_points_work_without_optional_packages():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _WITHOUT_OPTIONAL], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok []", res.stdout
 
 
 def _cases():

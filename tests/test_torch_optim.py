@@ -160,6 +160,46 @@ def test_k4_tree_plain_matches_jax_kernel_and_jnp_path():
             nqs[i], nss[i] = kern[3], kern[4].reshape(-1)
 
 
+def test_k4_tree_plain_matches_jnp_path_per_leaf_draws():
+    """The tree update of ``test_k4_tree_plain_matches_jax_kernel_and_jnp_path``
+    with each leaf's gradient magnitude drawn per leaf, not per block, held
+    against the JAX jnp path alone (JAX's interpret-mode kernel and its jnp
+    path differ from each other by up to 1.013e-6 at one element here), at
+    the same tolerances; the state carries over from the port's own update."""
+    numels, b1, b2, eps = [200, 513, 40 * 256 + 17, 256, 1000], 0.9, 0.999, 1e-8
+    rng = np.random.RandomState(5)
+    nbs = [-(-n // 256) for n in numels]
+    mqs = [np.full(nb * 256, 127, np.uint8) for nb in nbs]
+    nqs = [np.zeros(nb * 256, np.uint8) for nb in nbs]
+    mss = [np.zeros(nb, np.float32) for nb in nbs]
+    nss = [np.zeros(nb, np.float32) for nb in nbs]
+    jnp_state = jopt.scale_by_adam8bit(b1, b2, eps, kernel=False)
+    for t in range(1, 4):
+        gs = [(rng.randn(n) * 10.0 ** rng.uniform(-4, -1)).astype(np.float32) for n in numels]
+        got = adam8bit.adam8bit_leaves(
+            [torch.from_numpy(g) for g in gs], [torch.from_numpy(q) for q in mqs],
+            [torch.from_numpy(x) for x in mss], [torch.from_numpy(q) for q in nqs],
+            [torch.from_numpy(x) for x in nss],
+            tuple(float(x) for x in np.asarray(jnp.stack([1 - b1 ** jnp.float32(t),
+                                                          1 - b2 ** jnp.float32(t)]))),
+            b1, b2, eps)
+        for i, (g, n, nb) in enumerate(zip(gs, numels, nbs)):
+            state = jopt.Adam8bitState(
+                count=jnp.int32(t - 1), mu=jopt._Q(jnp.asarray(mqs[i]), jnp.asarray(mss[i])),
+                nu=jopt._Q(jnp.asarray(nqs[i]), jnp.asarray(nss[i])))
+            jstep, jstate = jnp_state.update(jnp.asarray(g), state)
+            mine = [o[i].numpy() for o in got]
+            assert mine[0].shape == (n,) and mine[1].shape == (nb * 256,)
+            np.testing.assert_allclose(mine[0], np.asarray(jstep).reshape(-1), rtol=0, atol=1e-6)
+            _codes_close(mine[1], jstate.mu.q, 1e-3)
+            _codes_close(mine[3], jstate.nu.q, 1e-3)
+            np.testing.assert_allclose(mine[2], np.asarray(jstate.mu.scale), rtol=1e-6)
+            np.testing.assert_allclose(mine[4], np.asarray(jstate.nu.scale), rtol=1e-6)
+            assert (mine[1][n:] == 127).all() and (mine[3][n:] == 0).all()
+            mqs[i], mss[i], nqs[i], nss[i] = (mine[1].copy(), mine[2].copy(), mine[3].copy(),
+                                              mine[4].copy())
+
+
 def test_bias_corrections_match_jax():
     for t in (1, 2, 7, 1000):
         cf = jnp.float32(t)

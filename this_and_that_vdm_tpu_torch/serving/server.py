@@ -1,0 +1,196 @@
+"""In-process micro-batching server for clip generation (counterpart of
+``this_and_that_vdm_tpu/serving/server.py``).
+
+A resident pipeline serves concurrent requests:
+
+* requests are **micro-batched**: grouped by everything that changes the
+  pipeline call (shapes, steps, frames, guidance, ...) and stacked up to
+  ``max_batch`` along the clip axis, so one pipeline invocation serves them;
+* per-request **gesture conditions** batch too (``[B, F, H, W, 3]``);
+* per-request determinism: each request's noise comes from its own
+  ``torch.Generator(device=pipe.device).manual_seed(seed)``, image noise
+  ``[1, H, W, 3]`` first, then latents ``[1, F, H/8, W/8, 4]``, the order of
+  the pipeline's own draws; so a request served alone equals
+  ``pipe(image[None], cond, generator=Generator.manual_seed(seed))`` bit for
+  bit, and a batched one equals it up to float noise (the pipelines map
+  temporal context per clip);
+* callers get ``concurrent.futures.Future`` objects: submit from any thread.
+  A result's future carries ``timing``: the request's queue wait and the
+  size of the batch that served it.
+
+Usage::
+
+    server = VideoGenServer(pipe, output_type="uint8")
+    fut = server.submit(image, condition=raster, prompt_ids=ids, seed=7)
+    frames = fut.result()          # [F, H, W, 3]
+    server.close()
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["VideoGenServer"]
+
+
+@dataclasses.dataclass
+class _Request:
+    image: np.ndarray                     # [H, W, 3] in [-1, 1]
+    condition: Optional[np.ndarray]       # [F, H, W, 3] in [0, 1] (VGL) | None
+    prompt_ids: Optional[np.ndarray]      # [77] int | None
+    seed: int
+    sampling: Dict[str, Any]
+    future: Future
+    t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+
+
+class VideoGenServer:
+    """Resident micro-batching front end over a pipeline.
+
+    ``pipe``: a ``StableVideoDiffusionPipeline`` or
+    ``StableVideoDiffusionControlNetPipeline``; the server runs on its
+    device.  ``max_batch``: clips per invocation (1: one clip a call).
+    ``max_delay_s``: how long the batcher waits for same-bucket followers
+    once a request is in hand.  ``default_sampling``: pipeline keyword
+    arguments of every request, which ``submit`` may override.
+    """
+
+    def __init__(self, pipe, max_batch: int = 1, max_delay_s: float = 0.05,
+                 **default_sampling):
+        self.pipe = pipe
+        self.max_batch = int(max_batch)
+        self.max_delay_s = float(max_delay_s)
+        self.default_sampling = default_sampling
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._closed = False
+        self._state_lock = threading.Lock()  # submit/close check-then-act
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------ api
+    def submit(self, image: np.ndarray, condition: Optional[np.ndarray] = None,
+               prompt_ids: Optional[np.ndarray] = None, seed: int = 0,
+               **sampling) -> Future:
+        """Enqueue one clip request; returns a Future of [F, H, W, 3]."""
+        merged = dict(self.default_sampling)
+        merged.update(sampling)
+        req = _Request(np.asarray(image), None if condition is None else np.asarray(condition),
+                       None if prompt_ids is None else np.asarray(prompt_ids),
+                       int(seed), merged, Future())
+        with self._state_lock:  # no request may slip in behind the sentinel
+            if self._closed:
+                raise RuntimeError("server is closed")
+            self._queue.put(req)
+        return req.future
+
+    def close(self, timeout: Optional[float] = 60.0):
+        """Drain outstanding requests and stop the worker."""
+        with self._state_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._queue.put(None)
+        self._worker.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ---------------------------------------------------------------- batch
+    @staticmethod
+    def _bucket(req: _Request) -> Tuple:
+        """Requests sharing a bucket stack into one pipeline call: identical
+        shapes and sampling parameters."""
+        return (
+            req.image.shape,
+            None if req.condition is None else req.condition.shape,
+            None if req.prompt_ids is None else req.prompt_ids.shape,
+            tuple(sorted(req.sampling.items())),
+        )
+
+    def _take_batch(self):
+        """Block for one request, then collect same-bucket followers for up
+        to ``max_delay_s`` (or until ``max_batch``)."""
+        req = self._queue.get()
+        if req is None:
+            # shutdown sentinel, but a mixed-bucket request re-queued by an
+            # earlier round may sit BEHIND it: serve leftovers before exiting
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return None
+            if req is None:  # close() enqueues exactly one sentinel
+                return None
+            self._queue.put(None)  # keep the sentinel behind the leftovers
+        bucket = self._bucket(req)
+        batch = [req]
+        deadline = time.monotonic() + self.max_delay_s
+        while len(batch) < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._queue.put(None)  # keep the shutdown signal
+                break
+            if self._bucket(nxt) == bucket:
+                batch.append(nxt)
+            else:
+                self._queue.put(nxt)  # different call: next batch
+                break
+        return batch
+
+    def _run(self):
+        while True:
+            batch = self._take_batch()
+            if batch is None:
+                return
+            try:
+                self._execute(batch)
+            except Exception as e:  # noqa: BLE001 - propagated to every caller of the batch
+                for r in batch:
+                    if not r.future.done():
+                        r.future.set_exception(e)
+
+    def _execute(self, batch):
+        # claim the futures: a request whose caller cancelled while queued is
+        # dropped here; afterwards cancel() can no longer race set_result
+        batch = [r for r in batch if r.future.set_running_or_notify_cancel()]
+        if not batch:
+            return
+        t_start = time.perf_counter()
+        sampling = dict(batch[0].sampling)
+        num_frames = int(sampling.get("num_frames", 14))
+        h, w = batch[0].image.shape[:2]
+        dev = self.pipe.device
+        image_noise, latents = [], []
+        for r in batch:  # each request's own draws, in the pipeline's order
+            g = torch.Generator(device=dev).manual_seed(r.seed)
+            image_noise.append(torch.randn((1, h, w, 3), generator=g, device=dev))
+            latents.append(torch.randn((1, num_frames, h // 8, w // 8, 4), generator=g,
+                                       device=dev))
+        kwargs = dict(sampling, latents=torch.cat(latents), image_noise=torch.cat(image_noise))
+        if batch[0].prompt_ids is not None:
+            kwargs["prompt_ids"] = np.stack([r.prompt_ids for r in batch])
+        images = np.stack([r.image for r in batch])
+        if batch[0].condition is not None:
+            out = self.pipe(images, np.stack([r.condition for r in batch]), **kwargs)
+        else:
+            out = self.pipe(images, **kwargs)
+        out = np.asarray(out)
+        for i, r in enumerate(batch):
+            r.future.timing = dict(queue_s=t_start - r.t_submit, batch=len(batch))
+            r.future.set_result(out[i])
