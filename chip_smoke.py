@@ -1,6 +1,8 @@
 """Drive the PyTorch port's VGL clip, its entry points (weight loading, the
-server, the batch-inference CLI) and its VGL / VL training once on one CUDA
-card, with its kernels.
+server, the batch-inference CLI), its VGL / VL training (from a weight folder
+and a Bridge-layout dataset, and on synthetic clips) and its tools (eval
+with LPIPS, the 8-bit AdamW A/B, the app) once on one CUDA card, with its
+kernels.
 
     python3 chip_smoke.py
 
@@ -41,7 +43,7 @@ Phases (any failure raises and exits nonzero):
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
                  counters show every kernel ran on that path
-  8. entry       (runs after phase 5, before the training phases) the phase-5
+  8. entry       (runs after phase 5, before the other phases) the phase-5
                  models written through weights/export as an HF-layout fp16
                  tree with a tokenizer folder, loaded back through
                  weights/loader.load_pretrained (every tensor bit for bit
@@ -54,6 +56,27 @@ Phases (any failure raises and exits nonzero):
                  rel L2, PSNR, one pipeline call); cli.inference.main over two
                  instances (im_0.jpg as PNG bytes); the launch counters of the
                  serve and CLI paths must show K1-K3
+  9. weights+data (runs after phase 8, on its tree) a Bridge-layout dataset
+                 written beside the weights (4 VGL instances of 14 frames, 4
+                 VL instances of 20-56 frames, all at 480x640 as PNG bytes
+                 under the im_N.jpg names; one validation instance);
+                 training.train_loop.main --pretrained on the shipped YAMLs
+                 (dataset, tokenizer and validation keys pointed at the
+                 trees): VGL 3 steps with a 25-step validation render at step
+                 3, VL 2 steps.  Checks: every loaded tensor at step 0
+                 bit-equal to phase 8's fp16-rounded original in the dtype it
+                 was loaded in; the first batch equal to its source frames
+                 (bicubic-resized, subsampled in VL), gesture raster and
+                 prompt ids; finite losses, positive gradient norms; the
+                 frozen UNet bit-unchanged, the trained model moved; the
+                 render's 14 PNGs and GIF; K1-K4 on the train paths, K1-K3
+                 on the render.  Then cli.eval with LPIPS on the card (render
+                 against itself: 0 and the gate passes; against phase 8's CLI
+                 render: > 0; the card's LPIPS within 1e-4 of the CPU's),
+                 cli.adam8bit_ab (300 steps, both curves falling, K4 once a
+                 step) and the app's one-shot from the tree (4 steps).
+                 Prints load, step and render seconds, the loader's wait a
+                 step and the peak memory
   6. VGL train   training.train_loop.main on config/train_image2video_gesturenet.yaml
                  as written (14x256x384, batch 1, remat, bf16 frozen towers
                  and UNet, fp32 GestureNet, 8-bit AdamW, clip 1.0), 3 steps
@@ -65,7 +88,7 @@ Phases (any failure raises and exits nonzero):
                  UNet trains in fp32), 3 steps, the last one profiled
 
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the paths of phases 5-8, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-9, each counted from zero), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -916,8 +939,8 @@ def tree_parent(pipe):
 
 def write_tree(pipe, root, smi):
     """The pipeline's five models through the port's writer, as an HF-layout
-    fp16-variant tree with a tokenizer folder; returns the expected state of
-    each model after the trip through fp16 (on the card)."""
+    fp16-variant tree with a tokenizer folder; returns each model's state as
+    written (fp16 host copies, with the dtype of each original tensor)."""
     from this_and_that_vdm_tpu_torch.cli import rehearsal
     from this_and_that_vdm_tpu_torch.weights.export import save_hf_layout
 
@@ -933,7 +956,7 @@ def write_tree(pipe, root, smi):
     nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
     log(f"[entry] wrote the fp16 tree: {nbytes} bytes in {write_s:.3f} s "
         f"({nbytes / write_s / 1e9:.3f} GB/s)  [{smi}]")
-    expected = {name: {k: t.to(torch.float16).float().to(t.dtype) for k, t in
+    expected = {name: {k: (t.to(torch.float16).cpu(), t.dtype) for k, t in
                        m.state_dict().items()} for name, m in models.items()}
     return expected, dict(bytes=nbytes, write_s=write_s, free_bytes=free)
 
@@ -1004,6 +1027,20 @@ def write_instances(root, n=2):
             f.write("".join(f"{fr} {x} {y}\n" for fr, x, y in ENTRY_GESTURES[i + 1]))
 
 
+def loaded_as_written(name, module, expected, dtype_of):
+    """Check every tensor of ``module`` against the fp16 copy written for
+    model ``name``, in ``dtype_of(key)`` (the dtype the loader gives it),
+    bit for bit; returns the count of tensors checked."""
+    got = module.state_dict()
+    if set(got) != set(expected[name]):
+        raise RuntimeError(f"{name}: loaded keys differ from the written ones")
+    for k, (want16, _) in expected[name].items():
+        want = want16.to(got[k].device).to(dtype_of(k))
+        if got[k].dtype != want.dtype or not torch.equal(_bits(got[k]), _bits(want)):
+            raise RuntimeError(f"{name}.{k} is not the fp16-rounded original in {want.dtype}")
+    return len(got)
+
+
 @torch.no_grad()
 def phase_entry_points(tree, expected, smi, device="cuda", dtype=torch.bfloat16,
                        scale="full", dims=(F, H, W)):
@@ -1031,16 +1068,8 @@ def phase_entry_points(tree, expected, smi, device="cuda", dtype=torch.bfloat16,
     rep["load_s"] = time.perf_counter() - t0
     loaded = dict(unet=pipe.unet, gesturenet=pipe.controlnet, vae=pipe.vae,
                   image_encoder=pipe.image_encoder, text_encoder=pipe.text_encoder)
-    n_tensors = 0
-    for name, m in loaded.items():
-        got = m.state_dict()
-        if set(got) != set(expected[name]):
-            raise RuntimeError(f"entry: {name} loaded keys differ from the written ones")
-        for k, want in expected[name].items():
-            if got[k].dtype != want.dtype or not torch.equal(_bits(got[k]), _bits(want)):
-                raise RuntimeError(f"entry: {name}.{k} is not the fp16-rounded original")
-            n_tensors += 1
-    expected.clear()
+    n_tensors = sum(loaded_as_written(name, m, expected, lambda k: expected[name][k][1])
+                    for name, m in loaded.items())
     log(f"[entry] loaded the tree in {rep['load_s']:.3f} s; {n_tensors} tensors bit-equal to "
         f"the fp16-rounded originals  [{smi}]")
 
@@ -1211,20 +1240,52 @@ def busy_share(prof):
     return busy / (end - first), (end - first) / 1e3
 
 
-def phase_train(mode, config, steps, profile, smi):
+@contextlib.contextmanager
+def first_batch(rec):
+    """Keep a host copy of the first batch a train step of ``train_loop``
+    receives in ``rec["first_batch"]``."""
+    from this_and_that_vdm_tpu_torch.training import trainer
+
+    saved = (trainer.make_vl_train_step, trainer.make_vgl_train_step)
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def recorded(state, batch, *a, **kw):
+                if "first_batch" not in rec:
+                    rec["first_batch"] = {k: v.detach().cpu() for k, v in batch.items()}
+                return step(state, batch, *a, **kw)
+
+            return recorded
+
+        return made
+
+    trainer.make_vl_train_step, trainer.make_vgl_train_step = (wrap(m) for m in saved)
+    try:
+        yield rec
+    finally:
+        trainer.make_vl_train_step, trainer.make_vgl_train_step = saved
+
+
+def phase_train(mode, config, steps, profile, smi, edits=None, args=("--synthetic", "4"),
+                step0_check=None, batch_check=None, tag=None):
     """``train_loop.main`` on the shipped YAML (a temporary copy whose
-    output_dir is a temporary directory, removed afterwards), ``steps``
-    steps of synthetic data; the checks of phases 6 / 7.  With ``profile``
-    the last step runs under ``torch.profiler`` and is left out of the
-    seconds per step."""
+    output_dir is a temporary directory, removed afterwards; ``edits`` sets
+    other keys), ``steps`` steps of synthetic data (or what ``args`` says);
+    the checks of phases 6 / 7 / 9.  With ``profile`` the last step runs
+    under ``torch.profiler`` and is left out of the seconds per step.
+    ``step0_check(models)`` and ``batch_check(first batch)`` add checks."""
     from this_and_that_vdm_tpu_torch import ops
     from this_and_that_vdm_tpu_torch.training import train_loop
 
+    tag = tag or f"train {mode}"
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{mode}_")
     try:
+        edits = dict(edits or {}, output_dir=f"{tmp}/out")
         with open(config) as f:
-            lines = [f"output_dir: {tmp}/out" if line.startswith("output_dir:") else line
-                     for line in f.read().splitlines()]
+            lines = [next((f"{k}: {v}" for k, v in edits.items() if line.startswith(f"{k}:")),
+                          line) for line in f.read().splitlines()]
         cfg_path = os.path.join(tmp, os.path.basename(config))
         with open(cfg_path, "w") as f:
             f.write("\n".join(lines) + "\n")
@@ -1250,6 +1311,8 @@ def phase_train(mode, config, steps, profile, smi):
                 rec["profile"] = device_time(rec.pop("prof"))
             adam = state.opt_state[1][0] if mode == "vgl" else state.opt_state[0]
             if step == 0:
+                if step0_check is not None:
+                    rec["checks"]["loaded_tensors_as_written"] = step0_check(models)
                 snap["trained"] = _snapshot(state.params)
                 if mode == "vgl":
                     snap["unet"] = _snapshot(dict(models["unet"].named_parameters()))
@@ -1257,7 +1320,8 @@ def phase_train(mode, config, steps, profile, smi):
                 torch.cuda.reset_peak_memory_stats()
                 return
             rec["metrics"].append(dict(step=step, loss=float(m["loss"]),
-                                       grad_norm=float(m["grad_norm"])))
+                                       grad_norm=float(m["grad_norm"]),
+                                       data_wait_s=m["data_wait_s"]))
             if step == 1:  # schedule(0) = 0 with warmup: nothing moves
                 rec["checks"]["unchanged_after_step_1"] = _same(snap["trained"], state.params)
             if step == steps:
@@ -1281,10 +1345,12 @@ def phase_train(mode, config, steps, profile, smi):
                 rec["prof"].__enter__()
 
         t0 = time.perf_counter()
-        with timed_optimizer(opt_ms):
-            train_loop.main(["--config", cfg_path, "--mode", mode, "--synthetic", "4",
-                             "--max-steps", str(steps)], on_step=on_step)
+        with timed_optimizer(opt_ms), first_batch(rec):
+            train_loop.main(["--config", cfg_path, "--mode", mode, "--max-steps", str(steps)]
+                            + list(args), on_step=on_step)
         wall = time.perf_counter() - t0
+        if batch_check is not None:
+            rec["checks"]["first_batch_as_written"] = batch_check(rec.pop("first_batch"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = ops.launch_counts()
@@ -1294,25 +1360,25 @@ def phase_train(mode, config, steps, profile, smi):
     tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                 cudnn=torch.backends.cudnn.allow_tf32)
     for m in rec["metrics"]:
-        log(f"[train {mode}] step {m['step']}: loss {m['loss']:.6f} grad_norm "
-            f"{m['grad_norm']:.6f}")
+        log(f"[{tag}] step {m['step']}: loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f}; waited {m['data_wait_s']:.4f} s for the batch")
     prof = rec.get("profile")
     if prof is not None:
         prof.update(k2_bound_ms=gn_bound_ms(gn_sizes), k2_calls=len(gn_sizes),
                     k4_bound_ms=rec["k4_bound_ms"])
-        log(f"[train {mode}] profiled step {steps}: K4 {prof['kernels_ms']['adam8bit']:.3f} ms "
+        log(f"[{tag}] profiled step {steps}: K4 {prof['kernels_ms']['adam8bit']:.3f} ms "
             f"device over {prof['kernel_launches']['adam8bit']} launches ({rec['leaves']} "
             f"leaves, bound {rec['k4_bound_ms']:.3f} ms); K2 {prof['kernels_ms']['groupnorm']:.3f}"
             f" ms device over {prof['kernel_launches']['groupnorm']} launches ({len(gn_sizes)} "
             f"calls, bound {prof['k2_bound_ms']:.3f} ms); optimizer update host ms by step "
             f"{[round(t, 3) for t in opt_ms]}  [{smi}]")
-        log(f"[train {mode}] profiled step {steps}: device {prof['total_ms']:.1f} ms of "
+        log(f"[{tag}] profiled step {steps}: device {prof['total_ms']:.1f} ms of "
             f"{step_s[-1] * 1e3:.1f} ms wall; the port's kernels (ms) "
             + ", ".join(f"{k} {v:.2f}" for k, v in prof["kernels_ms"].items())
             + "; their launches in the step (by kernel name) "
             + ", ".join(f"{k} {v}" for k, v in prof["kernel_launches"].items())
             + "; largest: " + "; ".join(f"{n} {t:.2f}" for n, t in prof["top_ms"]))
-    log(f"[train {mode}] {steps} steps, seconds per step {[round(t, 4) for t in step_s]} "
+    log(f"[{tag}] {steps} steps, seconds per step {[round(t, 4) for t in step_s]} "
         f"(timed steps >= 2: {[round(t, 4) for t in timed]}); peak memory "
         f"{peak / 2**30:.2f} GiB ({peak} bytes); TF32 {tf32}; 8-bit state over "
         f"{rec['state_params'] / 1e9:.4f} B parameters; launches {counts}; checks "
@@ -1320,15 +1386,312 @@ def phase_train(mode, config, steps, profile, smi):
     finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
                  for m in rec["metrics"])
     if len(rec["metrics"]) != steps or not finite:
-        raise RuntimeError(f"train {mode}: metrics {rec['metrics']}")
+        raise RuntimeError(f"{tag}: metrics {rec['metrics']}")
     if not all(rec["checks"].values()):
-        raise RuntimeError(f"train {mode}: checks failed {rec['checks']}")
+        raise RuntimeError(f"{tag}: checks failed {rec['checks']}")
     if min(counts.values()) == 0:
-        raise RuntimeError(f"train {mode}: the training path skipped a kernel: {counts}")
+        raise RuntimeError(f"{tag}: the training path skipped a kernel: {counts}")
     return dict(mode=mode, config=config, steps=steps, metrics=rec["metrics"],
                 step_s=step_s, timed_step_s=timed, profile=prof, peak_bytes=peak, tf32=tf32,
                 launches=counts, optimizer_host_ms=opt_ms,
                 checks=rec["checks"], state_params=rec["state_params"], wall_s=wall)
+
+
+# ----------------------------------------------------------------- phase 9
+
+# Bridge-layout training data beside the weights: VGL instances of F frames,
+# VL instances of 20-56 frames (subsample_indices takes real gaps), frames
+# at the curated 480x640 as PNG bytes under the im_N.jpg names.  Every
+# prompt says left or right, which turns the flip augmentation off, so the
+# first batch compares with its source frames unflipped.
+DATA = dict(vgl_frames=(F, F, F, F), vl_frames=(20, 31, 44, 56), seed=42, validation_step=3,
+            vgl_steps=3, vl_steps=2, ab_steps=300, app_steps=4)
+DATA_PROMPTS = ("push the cup to the left", "move the red block right",
+                "slide the pot to the left", "turn the knob to the right")
+DATA_GESTURES = ([(0, 320.0, 240.0)], [(0, 200.0, 150.0), (F - 1, 430.0, 300.0)])
+LPIPS_REL_BOUND = 1e-4  # the card's LPIPS against the CPU's, TF32 off
+
+
+def frame_seed(kind, inst, i):
+    return 5000 + (500 if kind == "vl" else 0) + 100 * inst + i
+
+
+def write_training_data(root, smi):
+    """``<root>/data_vgl``, ``<root>/data_vl`` and ``<root>/val`` (phase 8's
+    Instance0, for the validation render); returns their paths."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    t0 = time.perf_counter()
+    paths = dict(vgl=os.path.join(root, "data_vgl"), vl=os.path.join(root, "data_vl"),
+                 val=os.path.join(root, "val"))
+    n_files, original = 0, ENTRY["original"]
+    for kind, counts in (("vgl", DATA["vgl_frames"]), ("vl", DATA["vl_frames"])):
+        for j, n in enumerate(counts):
+            d = os.path.join(paths[kind], f"inst{j}")
+            os.makedirs(d)
+            for i in range(n):
+                video_io.write_png(os.path.join(d, f"im_{i}.jpg"),
+                                   instance_image(frame_seed(kind, j, i), original))
+            with open(os.path.join(d, "lang.txt"), "w") as f:
+                f.write(DATA_PROMPTS[j] + "\n")
+            if kind == "vgl":
+                with open(os.path.join(d, "data.txt"), "w") as f:
+                    f.write("".join(f"{fr} {x} {y}\n" for fr, x, y in DATA_GESTURES[j % 2]))
+            n_files += n
+    shutil.copytree(os.path.join(root, "instances", "Instance0"),
+                    os.path.join(paths["val"], "Instance0"))
+    log(f"[weights+data] wrote {n_files} frames at {original[0]}x{original[1]} (PNG bytes) "
+        f"in {time.perf_counter() - t0:.3f} s  [{smi}]")
+    return paths
+
+
+def first_batch_check(mode, tree, dims, smi):
+    """The check of the first batch: the instance the seeded permutation puts
+    first, its frames (subsampled in VL) as ``resize_bicubic`` of the source
+    images written, its condition as the rasteriser makes it from its
+    data.txt, its prompt ids as the tree's tokenizer gives them."""
+    from this_and_that_vdm_tpu_torch.cli.tokenizer import CLIPTokenizer
+    from this_and_that_vdm_tpu_torch.data.bridge import subsample_indices
+    from this_and_that_vdm_tpu_torch.data.image import resize_bicubic
+    from this_and_that_vdm_tpu_torch.data.rasterize import rasterize_gesture_points
+
+    fr, h, w = dims
+    counts = DATA["vgl_frames" if mode == "vgl" else "vl_frames"]
+    first = int(np.random.RandomState(DATA["seed"]).permutation(len(counts))[0])
+    idx = range(fr) if mode == "vgl" else subsample_indices(counts[first], fr)
+    frames = np.stack([resize_bicubic(instance_image(frame_seed(mode, first, i),
+                                                     ENTRY["original"]), h, w) for i in idx])
+    want = dict(video_frames=frames.astype(np.float32) / 127.5 - 1.0,
+                prompt_ids=CLIPTokenizer.from_pretrained(tree)([DATA_PROMPTS[first]])[0])
+    if mode == "vgl":
+        want["condition"] = rasterize_gesture_points(DATA_GESTURES[first % 2], ENTRY["original"],
+                                                     (h, w), fr)
+
+    def check(batch):
+        same = {k: bool(np.array_equal(batch[k][0].numpy(), v)) for k, v in want.items()}
+        same["motion_bucket_id"] = float(batch["motion_bucket_id"][0]) == 200.0
+        log(f"[weights+data {mode}] first batch is instance inst{first} (frames "
+            f"{list(idx)}): equal to its sources {same}  [{smi}]")
+        return all(same.values())
+
+    return check
+
+
+def loaded_check(mode, expected, smi):
+    """Step 0: every tensor of the five (VL: four) models equals the fp16
+    copy written in phase 8, in the dtype it was loaded in: fp32 for the
+    trainable model, the original's (bf16 weights, fp32 norms) for the
+    frozen ones."""
+    def check(models):
+        n = 0
+        for name, key in (("unet", "unet"), ("gesturenet", "controlnet"), ("vae", "vae"),
+                          ("image_encoder", "image_encoder"), ("text_encoder", "text_encoder")):
+            if models[key] is None:
+                continue
+            trainable = name == ("unet" if mode == "vl" else "gesturenet")
+            n += loaded_as_written(name, models[key], expected,
+                                   (lambda k: torch.float32) if trainable
+                                   else (lambda k, name=name: expected[name][k][1]))
+        log(f"[weights+data {mode}] step 0: {n} loaded tensors bit-equal to the fp16-rounded "
+            f"originals (trainable fp32, frozen as written)  [{smi}]")
+        return True
+
+    return check
+
+
+@contextlib.contextmanager
+def probes(rec, keep_render):
+    """Time ``load_training_models`` and ``render_validation`` as
+    ``train_loop`` calls them (synchronised), with the render's own launch
+    counts and the peak memory before it; copy the render to ``keep_render``
+    before the run's output directory goes."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.training import validation
+    from this_and_that_vdm_tpu_torch.weights import loader
+
+    load, render = loader.load_training_models, validation.render_validation
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        sync()
+        rec["load_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_render(*args, **kwargs):
+        sync()
+        before, rec["train_peak"] = ops.launch_counts(), torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        out = render(*args, **kwargs)
+        sync()
+        rec["render_s"] = time.perf_counter() - t0
+        rec["render_launches"] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        rec["render_dirs"] = [os.path.relpath(d, args[1]) for d in out]
+        shutil.copytree(args[1], keep_render)
+        return out
+
+    loader.load_training_models, validation.render_validation = timed_load, timed_render
+    try:
+        yield rec
+    finally:
+        loader.load_training_models, validation.render_validation = load, render
+
+
+def check_render(root, dirs, dims, smi):
+    """The validation render: step_<validation_step>/Instance0 with one PNG a
+    frame at the clip size, not constant, and a GIF of as many frames."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    fr, h, w = dims
+    want = os.path.join(f"step_{DATA['validation_step']}", "Instance0")
+    frames = video_io.load_frames_dir(os.path.join(root, want))
+    gif = gif_frames(os.path.join(root, want, "combined.gif"))
+    ok = (dirs == [want] and len(frames) == fr and all(f.shape == (h, w, 3) for f in frames)
+          and all(int(f.max()) > int(f.min()) for f in frames) and gif == (fr, w, h))
+    log(f"[weights+data vgl] validation render {dirs}: {len(frames)} PNGs "
+        f"{list(frames[0].shape) if frames else None}, GIF {gif}, per-frame range "
+        f"{[(int(f.min()), int(f.max())) for f in frames[:3]]}...: ok {ok}  [{smi}]")
+    if not ok:
+        raise RuntimeError(f"weights+data: validation render {dirs} {len(frames)} {gif}")
+
+
+def lpips_weights(path, seed=3):
+    """Seeded AlexNet ``features`` and LPIPS heads in the nested layout."""
+    from this_and_that_vdm_tpu_torch.utils.lpips import _ALEX_CONVS, CHANNELS
+
+    gen = torch.Generator().manual_seed(seed)
+    alex = {}
+    for idx, cin, cout, k, _, _ in _ALEX_CONVS:
+        alex[f"features.{idx}.weight"] = torch.randn(cout, cin, k, k, generator=gen) * 0.05
+        alex[f"features.{idx}.bias"] = torch.randn(cout, generator=gen) * 0.01
+    lin = {f"lin{j}.model.1.weight": torch.rand(1, c, 1, 1, generator=gen) * 0.1
+           for j, c in enumerate(CHANNELS)}
+    torch.save({"alexnet": alex, "lin": lin}, path)
+    return alex, lin
+
+
+def phase_eval_ab_app(tree, render_root, smi, device="cuda"):
+    """cli.eval with LPIPS on the card (render against itself, against phase
+    8's CLI render; the card's LPIPS against the CPU's), the 8-bit AdamW A/B
+    (K4 on the card) and the app's one-shot from the tree.  Returns (report,
+    launch counts of the A/B, of the app)."""
+    from this_and_that_vdm_tpu_torch import app, ops
+    from this_and_that_vdm_tpu_torch.cli import adam8bit_ab
+    from this_and_that_vdm_tpu_torch.cli import eval as eval_cli
+    from this_and_that_vdm_tpu_torch.utils import lpips, video_io
+
+    rep = {}
+    weights = os.path.join(tree, "lpips.pth")
+    alex, lin = lpips_weights(weights)
+    out = os.path.join(tree, "eval.json")
+    rcs, reports = [], []
+    for other, gate in ((render_root, ["--psnr-gate", "35"]), (os.path.join(tree, "rendered"),
+                                                               [])):
+        rcs.append(eval_cli.main([render_root, other, "--lpips-weights", weights, "--device",
+                                  device, "--out", out] + gate))
+        with open(out) as f:
+            reports.append(json.load(f))
+    self_lp = reports[0]["instances"]["Instance0"]["lpips_mean"]
+    cli_lp = reports[1]["instances"]["Instance0"]["lpips_mean"]
+    a = video_io.load_frames_dir(os.path.join(render_root, "Instance0"))
+    b = video_io.load_frames_dir(os.path.join(tree, "rendered", "Instance0"))
+    card = lpips.video_lpips(lpips.lpips_model(alex, lin, device), a, b)
+    cpu = lpips.video_lpips(lpips.lpips_model(alex, lin, "cpu"), a, b)
+    rel = abs(card - cpu) / abs(cpu)
+    rep["eval"] = dict(rcs=rcs, gate_pass=reports[0].get("gate_pass"), lpips_self=self_lp,
+                       lpips_vs_cli=cli_lp, psnr_vs_cli=reports[1]["instances"]["Instance0"][
+                           "psnr_mean"], lpips_card=card, lpips_cpu=cpu, lpips_rel=rel)
+    log(f"[eval] render vs itself: rc {rcs[0]}, gate {reports[0].get('gate_pass')}, LPIPS "
+        f"{self_lp}; vs phase 8's CLI render: LPIPS {cli_lp}, PSNR "
+        f"{rep['eval']['psnr_vs_cli']} dB; LPIPS on the card {card:.8f} vs CPU {cpu:.8f} "
+        f"(rel {rel:.3e}, bound {LPIPS_REL_BOUND:.0e})  [{smi}]")
+    if not (rcs[0] == 0 and reports[0].get("gate_pass") and self_lp < 1e-6 and cli_lp > 0
+            and rel <= LPIPS_REL_BOUND):
+        raise RuntimeError(f"eval: {rep['eval']}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    curves = adam8bit_ab.main(["--steps", str(DATA["ab_steps"]), "--device", device])
+    ab_counts = ops.launch_counts()
+    finals = {k: v[-1][1] for k, v in curves.items()}
+    rep["ab"] = dict(final=finals, first={k: v[0][1] for k, v in curves.items()},
+                     wall_s=time.perf_counter() - t0, launches=ab_counts)
+    log(f"[a/b] {DATA['ab_steps']} steps in {rep['ab']['wall_s']:.2f} s: final loss fp32 "
+        f"{finals['fp32']:.6f}, 8-bit {finals['adamw8bit']:.6f} (first "
+        f"{rep['ab']['first']}); launches {ab_counts}  [{smi}]")
+    for name, c in curves.items():
+        v = [x for _, x in c]
+        if not (np.all(np.isfinite(v)) and v[-1] < 0.5 * v[0]
+                and sum(b < a for a, b in zip(v, v[1:])) >= 0.9 * (len(v) - 1)):
+            raise RuntimeError(f"a/b: the {name} curve is not finite and decreasing: {c}")
+    if ab_counts["adam8bit"] != DATA["ab_steps"]:
+        raise RuntimeError(f"a/b: K4 launches {ab_counts}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    clip = app.main(["--pretrained", tree, "--image",
+                     os.path.join(tree, "val", "Instance0", "im_0.jpg"), "--points", "320,240",
+                     "430,300", "--steps", str(DATA["app_steps"]), "--prompt", PROMPTS[0],
+                     "--device", device, "--out", os.path.join(tree, "demo.mp4")])
+    app_counts = ops.launch_counts()
+    rep["app"] = dict(path=os.path.basename(clip), bytes=os.path.getsize(clip),
+                      wall_s=time.perf_counter() - t0, launches=app_counts)
+    if clip.endswith(".gif"):
+        rep["app"]["gif"] = gif_frames(clip)
+    log(f"[app] one-shot from the tree, {DATA['app_steps']} steps: wrote {rep['app']}  [{smi}]")
+    if rep["app"]["bytes"] < 1000 or rep["app"].get("gif", (F,))[0] != F:
+        raise RuntimeError(f"app: {rep['app']}")
+    if min(app_counts[k] for k in INFERENCE_KERNELS) == 0:
+        raise RuntimeError(f"app: the path skipped a kernel: {app_counts}")
+    return rep, ab_counts, app_counts
+
+
+def phase_weights_and_data(tree, expected, smi):
+    """Phase 9: train VGL (with a validation render) and VL from the phase-8
+    tree on Bridge-layout data at full width; then eval, the A/B and the app.
+    Returns (report, launch counts by path)."""
+    paths = write_training_data(tree, smi)
+    rep, launches = {}, {}
+    for mode, config, steps in (("vgl", "config/train_image2video_gesturenet.yaml",
+                                 DATA["vgl_steps"]),
+                                ("vl", "config/train_image2video.yaml", DATA["vl_steps"])):
+        edits = dict(dataset_path=f"[{paths[mode]}]", pretrained_tokenizer_name_or_path=tree)
+        if mode == "vgl":
+            edits.update(validation_img_folder=paths["val"],
+                         validation_step=DATA["validation_step"])
+        probe = {}
+        with probes(probe, os.path.join(tree, "render_vgl")):
+            run = phase_train(mode, config, steps, False, smi, edits=edits,
+                              args=("--pretrained", tree),
+                              step0_check=loaded_check(mode, expected, smi),
+                              batch_check=first_batch_check(mode, tree, (F, H, W), smi),
+                              tag=f"weights+data {mode}")
+        run.update(probe)
+        train_counts = {k: v - probe.get("render_launches", {}).get(k, 0)
+                        for k, v in run["launches"].items()}
+        launches[f"weights_data_{mode}"] = train_counts
+        waits = [m["data_wait_s"] for m in run["metrics"]]
+        log(f"[weights+data {mode}] load {probe['load_s']:.3f} s; first step "
+            f"{run['step_s'][0]:.4f} s, later steps {[round(t, 4) for t in run['step_s'][1:]]} "
+            f"s; loader wait per step {[round(t, 4) for t in waits]} s; peak "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB; train launches {train_counts}  [{smi}]")
+        if min(train_counts.values()) == 0:
+            raise RuntimeError(f"weights+data {mode}: the train path skipped a kernel "
+                               f"{train_counts}")
+        if mode == "vgl":
+            launches["render"] = probe["render_launches"]
+            log(f"[weights+data vgl] validation render {probe['render_s']:.3f} s; peak before "
+                f"it {probe['train_peak'] / 2**30:.2f} GiB; render launches "
+                f"{probe['render_launches']}  [{smi}]")
+            if min(probe["render_launches"][k] for k in INFERENCE_KERNELS) == 0:
+                raise RuntimeError(f"render skipped a kernel: {probe['render_launches']}")
+            check_render(os.path.join(tree, "render_vgl"), probe["render_dirs"], (F, H, W), smi)
+        rep[mode] = run
+        torch.cuda.empty_cache()
+    render_root = os.path.join(tree, "render_vgl", f"step_{DATA['validation_step']}")
+    tools, launches["ab"], launches["app"] = phase_eval_ab_app(tree, render_root, smi)
+    rep.update(tools)
+    return rep, launches
 
 
 def main():
@@ -1347,14 +1710,16 @@ def main():
         torch.cuda.empty_cache()
         entry, serve_counts, cli_counts = phase_entry_points(tree, expected, smi)
         entry.update(tree=tree_rep)
+        for path, c in (("serve", serve_counts), ("cli", cli_counts)):
+            if min(c[k] for k in INFERENCE_KERNELS) == 0:
+                raise RuntimeError(f"the {path} path skipped a kernel: {c}")
+        weights_data, wd_counts = phase_weights_and_data(tree, expected, smi)
     finally:
+        expected = None
         shutil.rmtree(tree, ignore_errors=True)
-    for path, c in (("serve", serve_counts), ("cli", cli_counts)):
-        if min(c[k] for k in INFERENCE_KERNELS) == 0:
-            raise RuntimeError(f"the {path} path skipped a kernel: {c}")
     torch.cuda.empty_cache()
     train = [phase_train(*args, smi) for args in TRAIN_CONFIGS]
-    paths = dict(slice=counts, serve=serve_counts, cli=cli_counts,
+    paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
                  **{f"train_{t['mode']}": t["launches"] for t in train})
 
     kernels = []
@@ -1372,6 +1737,7 @@ def main():
                        backward_rel_err=backward, denoiser_rel_l2=rel_l2,
                        denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, entry_points=entry, train=train,
+                       weights_and_data=weights_data,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@ batch-inference CLI with ``--random-weights`` and with ``--pretrained`` over
 a tree from the port's ``synthesize_hf_repo``; the rehearsal chain (A = B
 passes the PSNR >= 35 gate, the perturbed C fails it); the port's PSNR,
 SSIM and ``evaluate_trees`` against the JAX ones on the same trees
-(rel 1e-6); eval's LPIPS flags refused; the sweep."""
+(rel 1e-6); eval's LPIPS flags refused without a weight file (the LPIPS
+itself is in ``test_torch_lpips.py``); the sweep."""
 
 import json
 import os
@@ -137,8 +138,9 @@ def test_eval_main_gate_exit_codes_and_lpips_refused(renders, tmp_path):
     with open(out) as f:
         assert json.load(f)["gate_pass"]
     assert eval_cli.main([dirs["a"], dirs["c"], "--psnr-gate", "35"]) == 1
-    with pytest.raises(SystemExit):
-        eval_cli.main([dirs["a"], dirs["b"], "--lpips-weights", "w.pth"])
+    with pytest.raises(FileNotFoundError):
+        eval_cli.main([dirs["a"], dirs["b"], "--lpips-weights", str(tmp_path / "w.pth"),
+                       "--device", "cpu"])
 
 
 def test_sweep_writes_one_record_per_setting(instances, tmp_path):

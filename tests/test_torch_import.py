@@ -40,6 +40,20 @@ def test_importing_every_module_leaves_jax_out():
     assert int(out.split(" ")[0]) >= 20, out
 
 
+def test_training_tools_are_among_the_modules_imported():
+    """The modules of the training path and its tools are walked (and so
+    imported with JAX left out) by the check above."""
+    import pkgutil
+
+    import this_and_that_vdm_tpu_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    for name in ("data.bridge", "curation.prepare_bridge", "training.validation",
+                 "training.train_loop", "utils.lpips", "utils.profiling", "cli.adam8bit_ab",
+                 "app"):
+        assert f"{pkg.__name__}.{name}" in names, name
+
+
 # the card-path modules with the optional packages blocked: import fails
 # for each of them, as where they are not installed
 _WITHOUT_OPTIONAL = """
@@ -49,8 +63,13 @@ for name in BLOCKED:
     sys.modules[name] = None
 import numpy as np
 import torch
-from this_and_that_vdm_tpu_torch.cli import eval, inference, rehearsal, sweep, tokenizer
+from this_and_that_vdm_tpu_torch import app
+from this_and_that_vdm_tpu_torch.cli import (adam8bit_ab, eval, inference, rehearsal, sweep,
+                                             tokenizer)
+from this_and_that_vdm_tpu_torch.curation import prepare_bridge
 from this_and_that_vdm_tpu_torch.data import bridge, image, rasterize
+from this_and_that_vdm_tpu_torch.training import train_loop, validation
+from this_and_that_vdm_tpu_torch.utils import lpips, profiling
 from this_and_that_vdm_tpu_torch.serving import VideoGenServer
 from this_and_that_vdm_tpu_torch.utils import video_io
 from this_and_that_vdm_tpu_torch.weights import export, loader, safetensors_io
@@ -87,6 +106,26 @@ try:
     raise AssertionError("a JPEG was read with no decoder")
 except RuntimeError as e:
     assert "cv2" in str(e) and "PIL" in str(e), e
+# a Bridge instance of PNG-bytes frames through the datasets and the loader
+for k in range(2):
+    ik = os.path.join(d, "data", f"i{k}")
+    os.makedirs(ik)
+    for i in range(3):
+        video_io.write_png(os.path.join(ik, f"im_{i}.jpg"), rgb)
+    with open(os.path.join(ik, "lang.txt"), "w") as f:
+        f.write("push the cup\\n")
+    with open(os.path.join(ik, "data.txt"), "w") as f:
+        f.write("0 5.0 4.0\\n")
+cfg = bridge.DataConfig(dataset_path=[os.path.join(d, "data")], video_seq_length=3, height=8,
+                        width=12)
+ds = bridge.VideoThisThatDataset(cfg, lambda s: tokenizer.hash_tokenizer()(s)[0])
+batch = next(iter(bridge.PrefetchLoader(ds, 2, num_workers=2)))
+assert batch["video_frames"].shape == (2, 3, 8, 12, 3) and batch["condition"].shape[0] == 2
+# the clip writer falls back to a GIF without imageio
+assert video_io.export_mp4([rgb, rgb], os.path.join(d, "c.mp4")).endswith("c.gif")
+m = lpips.LPIPS()
+assert m(torch.zeros(1, 35, 35, 3), torch.zeros(1, 35, 35, 3)).shape == (1,)
+assert profiling.device_memory_stats("cpu") == {}
 bad = sorted(m for m in sys.modules if m in ("jax", "this_and_that_vdm_tpu")
              or (m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
 print("ok", bad)

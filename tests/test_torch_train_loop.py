@@ -232,4 +232,7 @@ def test_config_readers_take_the_shipped_yamls():
     vl = train_loop.train_config_from_yaml(
         train_loop.load_config(os.path.join(cfg_dir, "train_image2video.yaml")), "vl")
     assert vl.use_8bit_adam and vl.max_grad_norm is None and vl.learning_rate == 1e-5
-    assert train_loop.data_config_from_yaml(vgl) == train_loop.DataConfig(14, 256, 384)
+    dcfg = train_loop.data_config_from_yaml(vgl)
+    assert (dcfg.video_seq_length, dcfg.height, dcfg.width) == (14, 256, 384)
+    assert dcfg.dataset_path == () and dcfg.motion_bucket_id == 200
+    assert (dcfg.dataset_motion_mean, dcfg.svd_motion_std, dcfg.flip_aug_prob) == (25, 30, 0.45)

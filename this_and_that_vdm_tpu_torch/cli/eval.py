@@ -4,10 +4,13 @@
 Point it at two trees of instance folders (each ``<instance>/0.png..N.png``,
 the layout ``cli/inference.py`` writes) and it reports per-frame PSNR and
 per-instance SSIM, and enforces the PSNR gate with a nonzero exit code on
-failure.  LPIPS is not ported yet: its flags raise.
+failure; with LPIPS weights (``utils/lpips.py``: torchvision AlexNet
+``features`` + the LPIPS ``lin`` heads) it adds each instance's LPIPS,
+computed on ``--device`` (the CUDA card by default).
 
     python -m this_and_that_vdm_tpu_torch.cli.eval OURS_ROOT REF_ROOT \\
-        --psnr-gate 35 --out metrics.json
+        --psnr-gate 35 --out metrics.json \\
+        [--lpips-weights lpips.pth | --lpips-alexnet alexnet.pth --lpips-lin lin.pth]
 
 Either root may also be a single instance folder (contains ``0.png``
 directly); both must then be.
@@ -40,13 +43,40 @@ def _instances(root: str, ext: str) -> Dict[str, str]:
     return out
 
 
+def _load_lpips(alexnet_path: Optional[str], lin_path: Optional[str],
+                combined_path: Optional[str] = None, device="cuda"):
+    """The video-LPIPS scorer ``(frames_a, frames_b) -> float`` from torch
+    checkpoints, or None without them.  ``combined_path`` is ONE file
+    holding ``{"alexnet": <features state>, "lin": <lin heads state>}`` or a
+    flat merged state dict (``features.N.*`` and ``lin{i}.model.1.weight``)."""
+    if not (combined_path or (alexnet_path and lin_path)):
+        return None
+    import torch
+
+    from ..utils import lpips as lpips_mod
+
+    if combined_path:
+        blob = torch.load(combined_path, map_location="cpu", weights_only=True)
+        if "alexnet" in blob and "lin" in blob:
+            alex, lin = blob["alexnet"], blob["lin"]
+        else:
+            alex = {k: v for k, v in blob.items() if k.startswith("features.")}
+            lin = {k: v for k, v in blob.items() if k.startswith("lin")}
+    else:
+        alex = torch.load(alexnet_path, map_location="cpu", weights_only=True)
+        lin = torch.load(lin_path, map_location="cpu", weights_only=True)
+    model = lpips_mod.lpips_model(alex, lin, device)
+    return lambda a, b: lpips_mod.video_lpips(model, np.stack(a), np.stack(b))
+
+
 def evaluate_trees(root_a: str, root_b: str, ext: str = ".png",
-                   psnr_gate: Optional[float] = None) -> dict:
+                   psnr_gate: Optional[float] = None, lpips_video=None) -> dict:
     """Compare every instance present in both trees; returns the report dict.
 
     ``gate_pass`` is true iff EVERY frame of EVERY common instance meets
     ``psnr_gate``; absent instances and frame-count mismatches fail the gate
-    too (they mean a render is missing)."""
+    too (they mean a render is missing).  ``lpips_video`` (from
+    ``_load_lpips``) adds ``lpips_mean`` per instance."""
     a_map = _instances(root_a, ext)
     b_map = _instances(root_b, ext)
     common = sorted(set(a_map) & set(b_map))
@@ -84,6 +114,8 @@ def evaluate_trees(root_a: str, root_b: str, ext: str = ".png",
             psnr_min=cap(min(m["psnr"])),
             ssim_mean=round(m["ssim_mean"], 4),
         )
+        if lpips_video is not None:
+            row["lpips_mean"] = round(float(lpips_video(fa[:n], fb[:n])), 5)
         all_psnr.extend(m["psnr"])
         all_ssim.extend(m["ssim"])
         report["instances"][name] = row
@@ -108,15 +140,19 @@ def main(argv=None):
     p.add_argument("--ext", default=".png")
     p.add_argument("--psnr-gate", type=float, default=None,
                    help="per-frame PSNR acceptance threshold (35 for the reference gate)")
-    p.add_argument("--lpips-alexnet", default=None, help="not ported yet")
-    p.add_argument("--lpips-lin", default=None, help="not ported yet")
-    p.add_argument("--lpips-weights", default=None, help="not ported yet")
+    p.add_argument("--lpips-alexnet", default=None,
+                   help="torchvision alexnet state_dict (.pth)")
+    p.add_argument("--lpips-lin", default=None, help="LPIPS linear-head state_dict (.pth)")
+    p.add_argument("--lpips-weights", default=None,
+                   help="ONE torch file with both LPIPS checkpoints: "
+                        "{'alexnet':..., 'lin':...} or a flat merged dict")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the LPIPS scorer (default: the CUDA card)")
     p.add_argument("--out", default=None, help="write the report JSON here")
     args = p.parse_args(argv)
-    if args.lpips_alexnet or args.lpips_lin or args.lpips_weights:
-        p.error("LPIPS is not ported yet (utils/lpips.py): drop the --lpips-* flags")
 
-    report = evaluate_trees(args.root_a, args.root_b, args.ext, args.psnr_gate)
+    lp = _load_lpips(args.lpips_alexnet, args.lpips_lin, args.lpips_weights, args.device)
+    report = evaluate_trees(args.root_a, args.root_b, args.ext, args.psnr_gate, lp)
     text = json.dumps(report, indent=1)
     print(text)
     if args.out:

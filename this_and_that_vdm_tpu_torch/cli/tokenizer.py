@@ -129,7 +129,15 @@ class CLIPTokenizer:
 
     @classmethod
     def from_pretrained(cls, root: str, subfolder: str = "tokenizer") -> "CLIPTokenizer":
-        return cls(os.path.join(root, subfolder))
+        """The tokenizer in ``<root>/<subfolder>``; ``root`` is a local
+        folder, never a hub name (nothing is downloaded)."""
+        folder = os.path.join(root or "", subfolder)
+        if not root or not os.path.isdir(folder):
+            raise FileNotFoundError(
+                f"tokenizer {root!r}: no local folder {folder!r}; tokenizers are read from "
+                "disk only (nothing is downloaded): pass the path of a folder holding "
+                f"{subfolder}/vocab.json and {subfolder}/merges.txt")
+        return cls(folder)
 
     def bpe(self, token: str) -> str:
         if token in self.cache:

@@ -1,19 +1,23 @@
 """End-to-end training entry point for VL (UNet) and VGL (GestureNet).
 
 Counterpart of ``this_and_that_vdm_tpu/training/train_loop.py``: YAML config
-in, models built at the config's widths with seeded random weights, the
-train step of ``trainer.py`` on one device, checkpoints with rotation and
-``resume_from_checkpoint: latest``, JSONL/TensorBoard metrics, and an abort
-after 3 consecutive non-finite loss reads.
+in; the models from an HF-layout weight folder (``--pretrained``) or with
+seeded random weights at the config's widths; the Bridge datasets of
+``data/bridge.py`` (or ``--synthetic N`` random clips) through the threaded
+``PrefetchLoader``; the train step of ``trainer.py`` on one device;
+checkpoints with rotation and ``resume_from_checkpoint: latest``;
+JSONL/TensorBoard metrics; validation renders every ``validation_step``
+(``training/validation.py``); an abort after 3 consecutive non-finite loss
+reads.  Every step prints the host seconds the loop waited for its batch.
 
 Usage:
     python -m this_and_that_vdm_tpu_torch.training.train_loop \
         --config config/train_image2video_gesturenet.yaml --mode vgl \
-        --synthetic 4 --max-steps 3 [--device cuda|cpu] [--tiny | --nano]
+        [--pretrained WEIGHTS] [--synthetic N] [--max-steps N] \
+        [--device cuda|cpu] [--tiny | --nano]
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Not ported yet:
-``--pretrained`` weights, the Bridge dataset loader (``--synthetic N`` is
-required), validation rendering and the multi-device flags.
+the multi-device flags.
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..data import bridge
 from ..models import cast_compute_dtype, init_weights
-from ..models.clip import (CLIPTextConfig, CLIPTextModel, CLIPVisionConfig,
-                           CLIPVisionModelWithProjection)
-from ..models.controlnet import ControlNetConfig, ControlNetModel
-from ..models.unet import UNetConfig, UNetSpatioTemporalConditionModel
-from ..models.vae import AutoencoderKLTemporalDecoder, VAEConfig
+from ..models.clip import CLIPTextModel, CLIPVisionModelWithProjection
+from ..models.controlnet import ControlNetModel
+from ..models.unet import UNetSpatioTemporalConditionModel
+from ..models.vae import AutoencoderKLTemporalDecoder
+from ..weights import loader as weight_loader
 from . import checkpoint as ckpt
 from . import trainer
 from .metrics import MetricLogger
@@ -84,18 +89,23 @@ def frozen_dtype_from_yaml(cfg: dict) -> torch.dtype:
     return torch.bfloat16 if mp in ("fp16", "float16", "bf16", "bfloat16") else torch.float32
 
 
-@dataclasses.dataclass(frozen=True)
-class DataConfig:
-    """The clip shape of ``bridge.DataConfig`` (the loader's other fields
-    belong to the Bridge dataset, which is not ported)."""
-    video_seq_length: int = 14
-    height: int = 256
-    width: int = 384
-
-
-def data_config_from_yaml(cfg: dict) -> DataConfig:
-    return DataConfig(video_seq_length=int(cfg.get("video_seq_length", 14)),
-                      height=int(cfg.get("height", 256)), width=int(cfg.get("width", 384)))
+def data_config_from_yaml(cfg: dict) -> bridge.DataConfig:
+    return bridge.DataConfig(
+        dataset_path=tuple(cfg.get("dataset_path") or ()),
+        video_seq_length=int(cfg.get("video_seq_length", 14)),
+        height=int(cfg.get("height", 256)),
+        width=int(cfg.get("width", 384)),
+        flip_aug_prob=float(cfg.get("flip_aug_prob", 0.45)),
+        acceleration_tolerance=int(cfg.get("acceleration_tolerance", 4)),
+        use_text=bool(cfg.get("use_text", True)),
+        mix_ambiguous=bool(cfg.get("mix_ambiguous", False)),
+        empty_prompts_proportion=float(cfg.get("empty_prompts_proportion", 0.0)),
+        motion_bucket_id=cfg.get("motion_bucket_id", 200),
+        dataset_motion_mean=float(cfg.get("dataset_motion_mean", 35.3)),
+        dataset_motion_std=float(cfg.get("dataset_motion_std", 18.5)),
+        svd_motion_mean=float(cfg.get("svd_motion_mean", 165)),
+        svd_motion_std=float(cfg.get("svd_motion_std", 22.5)),
+    )
 
 
 # -------------------------------------------------------------------- data
@@ -103,7 +113,7 @@ def data_config_from_yaml(cfg: dict) -> DataConfig:
 class SyntheticDataset:
     """Random items with the dataset contract, item ``i`` seeded by ``i``."""
 
-    def __init__(self, dcfg: DataConfig, n: int = 64, gesture: bool = False):
+    def __init__(self, dcfg: bridge.DataConfig, n: int = 64, gesture: bool = False):
         self.dcfg, self.n, self.gesture = dcfg, n, gesture
 
     def __len__(self):
@@ -124,17 +134,23 @@ class SyntheticDataset:
         return item
 
 
-def batches(dataset, batch_size: int, seed: int, epoch: int):
-    """Full batches in a seeded per-epoch order, items stacked."""
-    order = np.random.RandomState(seed + epoch).permutation(len(dataset))
-    for i in range(0, len(order) - batch_size + 1, batch_size):
-        items = [dataset[int(j)] for j in order[i:i + batch_size]]
-        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
-
-
 # ------------------------------------------------------------------ models
 
 _ZERO_INIT = ("conv_in_concat", "controlnet_down_blocks", "controlnet_mid_block")
+
+
+def model_configs(cfg: dict, mode: str, scale: str = "full") -> dict:
+    """``weights.loader.model_configs(scale)`` with, at full width, the
+    config's ``gradient_checkpointing`` as the UNet's ``remat`` and, in VGL,
+    the GestureNet's: the UNet is checkpointed in VGL too, frozen but in the
+    gradient path."""
+    configs = weight_loader.model_configs(scale)
+    if scale == "full":
+        remat = bool(cfg.get("gradient_checkpointing", 1))
+        configs["unet"] = dataclasses.replace(configs["unet"], remat=remat)
+        configs["gesturenet"] = dataclasses.replace(configs["gesturenet"],
+                                                    remat=remat and mode == "vgl")
+    return configs
 
 
 def build_models(cfg: dict, mode: str, tiny: bool = False, nano: bool = False,
@@ -144,30 +160,14 @@ def build_models(cfg: dict, mode: str, tiny: bool = False, nano: bool = False,
     seeded random weights on ``device``: the frozen towers (and the VGL UNet)
     in ``frozen_dtype`` with ``requires_grad`` off, the trainable model in
     fp32.  The GestureNet's zero convs start at zero, as its JAX init does."""
-    if tiny or nano:
-        size = "nano" if nano else "tiny"
-        unet_cfg = getattr(UNetConfig, size)()
-        cn_cfg = getattr(ControlNetConfig, size)()
-        vae_cfg = VAEConfig.tiny()
-        vis_cfg = CLIPVisionConfig(hidden_size=32, num_layers=1, num_heads=4,
-                                   intermediate_size=64, patch_size=56, image_size=224,
-                                   projection_dim=unet_cfg.cross_attention_dim)
-        txt_cfg = CLIPTextConfig(vocab_size=1024, hidden_size=unet_cfg.cross_attention_dim,
-                                 num_layers=1, num_heads=4, intermediate_size=64,
-                                 max_positions=77)
-    else:
-        # the UNet is checkpointed in VGL too: frozen, but in the gradient path
-        remat = bool(cfg.get("gradient_checkpointing", 1))
-        unet_cfg = UNetConfig(remat=remat)
-        cn_cfg = ControlNetConfig(remat=remat and mode == "vgl")
-        vae_cfg, vis_cfg, txt_cfg = VAEConfig(), CLIPVisionConfig(), CLIPTextConfig()
+    c = model_configs(cfg, mode, "nano" if nano else "tiny" if tiny else "full")
     gen = generator or torch.Generator(device=device).manual_seed(0)
     with torch.device(device):
-        modules = dict(vae=AutoencoderKLTemporalDecoder(vae_cfg),
-                       image_encoder=CLIPVisionModelWithProjection(vis_cfg),
-                       text_encoder=CLIPTextModel(txt_cfg))
-        unet = UNetSpatioTemporalConditionModel(unet_cfg)
-        controlnet = ControlNetModel(cn_cfg) if mode == "vgl" else None
+        modules = dict(vae=AutoencoderKLTemporalDecoder(c["vae"]),
+                       image_encoder=CLIPVisionModelWithProjection(c["image_encoder"]),
+                       text_encoder=CLIPTextModel(c["text_encoder"]))
+        unet = UNetSpatioTemporalConditionModel(c["unet"])
+        controlnet = ControlNetModel(c["gesturenet"]) if mode == "vgl" else None
     frozen = list(modules.values()) + ([unet] if mode == "vgl" else [])
     for m in frozen:
         cast_compute_dtype(init_weights(m, gen), frozen_dtype).eval().requires_grad_(False)
@@ -183,29 +183,61 @@ def build_models(cfg: dict, mode: str, tiny: bool = False, nano: bool = False,
 
 # -------------------------------------------------------------------- main
 
+def _tokenizer(cfg: dict):
+    """``prompt -> [77]`` ids through the port's CLIP tokenizer, read from
+    ``<pretrained_tokenizer_name_or_path>/tokenizer`` (a local folder)."""
+    from ..cli.tokenizer import CLIPTokenizer
+
+    tok = CLIPTokenizer.from_pretrained(cfg.get("pretrained_tokenizer_name_or_path"),
+                                        subfolder="tokenizer")
+    return lambda s: tok([s])[0]
+
+
+def _validate(args, cfg, dcfg, models, tokenize, output_dir, step):
+    """Render the instances of ``validation_img_folder`` from the live
+    models (the reference's ``log_validation``)."""
+    from ..pipelines import StableVideoDiffusionControlNetPipeline, StableVideoDiffusionPipeline
+    from . import validation
+
+    kw = dict(unet=models["unet"], vae=models["vae"], image_encoder=models["image_encoder"],
+              text_encoder=models["text_encoder"])
+    pipe = (StableVideoDiffusionPipeline(**kw) if args.mode == "vl"
+            else StableVideoDiffusionControlNetPipeline(controlnet=models["controlnet"], **kw))
+    tokenize = tokenize or (lambda s: np.zeros((77,), np.int64))
+    t0 = time.perf_counter()
+    out = validation.render_validation(
+        step, os.path.join(output_dir, cfg.get("validation_store_folder", "validation_results")),
+        pipe, cfg["validation_img_folder"], lambda s: np.asarray(tokenize(s)).reshape(1, -1),
+        mode=args.mode, num_frames=dcfg.video_seq_length, height=dcfg.height,
+        width=dcfg.width, num_inference_steps=int(cfg.get("num_inference_steps", 25)),
+        motion_bucket_id=_motion_or_default(cfg))
+    print(f"step {step}: rendered {len(out)} validation instances in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
 def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
     """Train; returns the final ``TrainState``.  ``on_step(step, state,
     metrics, models)`` is called once before the first step (step 0, metrics
-    None) and after every step, for callers that inspect the run; ``models``
-    holds the unet, controlnet (None in VL), vae, image_encoder and
-    text_encoder."""
+    None) and after every step (metrics with the host seconds the loop
+    waited for the batch as ``data_wait_s``), for callers that inspect the
+    run; ``models`` holds the unet, controlnet (None in VL), vae,
+    image_encoder and text_encoder."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--mode", choices=["vl", "vgl"], default="vl")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="use N synthetic instances (the Bridge loader is not ported)")
+                   help="use N synthetic instances instead of dataset_path")
     p.add_argument("--tiny", action="store_true", help="tiny model configs (smoke)")
     p.add_argument("--nano", action="store_true", help="2-block nano configs (smoke)")
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--pretrained", default=None,
+                   help="dir with HF-layout subfolders (unet/, gesturenet/, vae/, ...)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_loop: no CUDA device; pass --device cpu to train on the CPU")
-    if not args.synthetic:
-        raise NotImplementedError("the Bridge dataset loader is not ported yet: "
-                                  "use --synthetic N")
 
     cfg = load_config(args.config)
     tcfg = train_config_from_yaml(cfg, args.mode)
@@ -215,11 +247,17 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
     seed = int(cfg.get("seed", 42))
     batch_size = int(cfg.get("train_batch_size", 1))
     num_iters = args.max_steps or int(cfg.get("num_train_iters", 100_000))
+    scale = "nano" if args.nano else "tiny" if args.tiny else "full"
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet, controlnet, modules = build_models(
-        cfg, args.mode, tiny=args.tiny, nano=args.nano,
-        frozen_dtype=frozen_dtype_from_yaml(cfg), device=device, generator=gen)
+    fdtype = frozen_dtype_from_yaml(cfg)
+    if args.pretrained:
+        unet, controlnet, modules = weight_loader.load_training_models(
+            args.pretrained, args.mode, model_configs(cfg, args.mode, scale), device, fdtype)
+    else:
+        unet, controlnet, modules = build_models(
+            cfg, args.mode, tiny=args.tiny, nano=args.nano, frozen_dtype=fdtype,
+            device=device, generator=gen)
     model = unet if args.mode == "vl" else controlnet
     tx = trainer.make_optimizer(tcfg, dict(model.named_parameters()))
     state = trainer.init_train_state(model, tx)
@@ -234,30 +272,45 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
             state = ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} at step {state.step}")
 
-    dataset = SyntheticDataset(dcfg, args.synthetic, gesture=args.mode == "vgl")
+    tokenize = None
+    if args.synthetic:
+        dataset = SyntheticDataset(dcfg, args.synthetic, gesture=args.mode == "vgl")
+    else:
+        tokenize = _tokenizer(cfg)
+        ds_cls = bridge.VideoThisThatDataset if args.mode == "vgl" else bridge.VideoDataset
+        dataset = ds_cls(dcfg, tokenize, seed=seed)
     if len(dataset) < batch_size:
         raise ValueError(f"{len(dataset)} instances make no batch of {batch_size}")
+    loader = bridge.PrefetchLoader(dataset, batch_size,
+                                   num_workers=int(cfg.get("dataloader_num_workers", 4)),
+                                   seed=seed)
     logger = MetricLogger(os.path.join(output_dir, cfg.get("logging_name", "logging")))
     ckpt_every = int(cfg.get("checkpointing_steps", 3000))
     total_limit = int(cfg.get("checkpoints_total_limit", 15))
+    val_every = int(cfg.get("validation_step", 0) or 0)
 
     models = dict(unet=unet, controlnet=controlnet, **modules)
     if on_step is not None:
         on_step(state.step, state, None, models)
-    nonfinite_reads, epoch = 0, 0
+    nonfinite_reads = 0
     t0 = time.perf_counter()
     print(f"training {args.mode} on {device}, batch {batch_size}, "
           f"{sum(p.numel() for p in state.params.values()) / 1e6:.1f} M trainable parameters")
     while state.step < num_iters:
-        for batch in batches(dataset, batch_size, seed, epoch):
+        t_ask = time.perf_counter()
+        for batch in loader:
+            wait = time.perf_counter() - t_ask
             if state.step >= num_iters:
                 break
             batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
             state, m = step_fn(state, batch, gen)
+            m["data_wait_s"] = wait
             step = state.step
+            line = f"step {step}: waited {wait:.4f} s for the batch"
             if step % 10 == 0 or step == 1:
                 loss = float(m["loss"])
                 logger.log(step, loss=loss, grad_norm=float(m["grad_norm"]))
+                line += f", loss {loss:.6f}"
                 # a diverged run burns accelerator hours silently: abort once
                 # the loss stays non-finite
                 if not math.isfinite(loss):
@@ -269,12 +322,15 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
                             f"with a lower learning rate or grad clip.")
                 else:
                     nonfinite_reads = 0
+            print(line)
             if on_step is not None:
                 on_step(step, state, m, models)
             if step % ckpt_every == 0:
                 path = ckpt.save_checkpoint(output_dir, step, state, total_limit)
                 print(f"step {step}: saved {path} ({time.perf_counter() - t0:.1f}s elapsed)")
-        epoch += 1
+            if val_every and cfg.get("validation_img_folder") and step % val_every == 0:
+                _validate(args, cfg, dcfg, models, tokenize, output_dir, step)
+            t_ask = time.perf_counter()
     path = ckpt.save_checkpoint(output_dir, state.step, state, total_limit)
     print(f"done at step {state.step}; final checkpoint {path}")
     logger.close()

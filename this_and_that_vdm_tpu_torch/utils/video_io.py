@@ -8,6 +8,7 @@ the standard library and numpy only.
   reads by content): PNG through ``read_png``; JPEG through ``cv2`` or
   ``PIL``, whichever is installed, else an error naming both.
 - ``export_gif``: GIF89a with a fixed 3-3-2 palette and its own LZW coder.
+- ``export_mp4``: mp4 through imageio where it has a writer, else a GIF.
 - ``psnr``, ``ssim`` (11x11 Gaussian window, sigma 1.5, the window's
   ``valid`` part only), ``per_frame_metrics``, ``load_frames_dir``.
 """
@@ -208,6 +209,22 @@ def export_gif(frames_uint8: Sequence[np.ndarray], path: str, fps: int = 4) -> s
     with open(path, "wb") as fh:
         fh.write(b"".join(parts))
     return path
+
+
+def export_mp4(frames_uint8: Sequence[np.ndarray], path: str, fps: int = 4) -> str:
+    """Write an mp4 through imageio; where imageio or its ffmpeg / pyav
+    backend is missing, a GIF beside it (``<stem>.gif``).  Returns the path
+    written."""
+    frames = [np.asarray(f, np.uint8) for f in frames_uint8]
+    try:
+        import imageio
+
+        imageio.mimsave(path, frames, fps=fps)
+        return path
+    except Exception:  # noqa: BLE001 -- any missing package or writer: fall back
+        if os.path.exists(path):  # no partial file left behind
+            os.remove(path)
+    return export_gif(frames, os.path.splitext(path)[0] + ".gif", fps=fps)
 
 
 # --------------------------------------------------------------- metrics

@@ -41,15 +41,17 @@ _CLASSES = dict(unet=UNetSpatioTemporalConditionModel, gesturenet=ControlNetMode
 
 def model_configs(scale: str = "full") -> dict:
     """The five models' configs: ``full`` = the published widths, ``tiny`` =
-    the JAX CLI's tiny set (``--random-weights`` and the weights rehearsal)."""
+    the JAX CLI's tiny set (``--random-weights`` and the weights rehearsal),
+    ``nano`` = the tiny set with the 2-block nano UNet and GestureNet (the
+    fastest training smoke)."""
     if scale == "full":
         return dict(unet=UNetConfig(), gesturenet=ControlNetConfig(), vae=VAEConfig(),
                     image_encoder=CLIPVisionConfig(), text_encoder=CLIPTextConfig())
-    if scale != "tiny":
+    if scale not in ("tiny", "nano"):
         raise ValueError(f"unknown model scale {scale!r}")
-    ucfg = UNetConfig.tiny()
+    ucfg = getattr(UNetConfig, scale)()
     ctx = ucfg.cross_attention_dim
-    return dict(unet=ucfg, gesturenet=ControlNetConfig.tiny(), vae=VAEConfig.tiny(),
+    return dict(unet=ucfg, gesturenet=getattr(ControlNetConfig, scale)(), vae=VAEConfig.tiny(),
                 image_encoder=CLIPVisionConfig(hidden_size=32, num_layers=1, num_heads=4,
                                                intermediate_size=64, patch_size=56,
                                                image_size=224, projection_dim=ctx),
@@ -97,11 +99,14 @@ def _load_dir(path: str) -> Dict[str, torch.Tensor]:
     return {k: (v.float() if v.dtype == torch.float16 else v) for k, v in state.items()}
 
 
-def _build(name: str, state: Dict[str, torch.Tensor], scale: str, device, dtype):
+def _build(name: str, state: Dict[str, torch.Tensor], config, device, dtype):
+    """The ``name`` model of ``config`` holding ``state`` (strict), its
+    matmul / conv weights cast to ``dtype`` (None: as loaded), on ``device``."""
     if name in ("image_encoder", "text_encoder"):
         # some transformers checkpoints carry the position_ids buffer
         state = {k: v for k, v in state.items() if not k.endswith("position_ids")}
-    module = build_module(name, scale, "meta")
+    with torch.device("meta"):
+        module = _CLASSES[name](config)
     module.load_state_dict(state, strict=True, assign=True)
     if dtype is not None:
         cast_compute_dtype(module, dtype)
@@ -110,17 +115,20 @@ def _build(name: str, state: Dict[str, torch.Tensor], scale: str, device, dtype)
 
 def load_unet(root: str, subfolder: str = "unet", scale: str = "full", device="cuda",
               dtype: Optional[torch.dtype] = None):
-    return _build("unet", _load_dir(os.path.join(root, subfolder)), scale, device, dtype)
+    return _build("unet", _load_dir(os.path.join(root, subfolder)),
+                  model_configs(scale)["unet"], device, dtype)
 
 
 def load_gesturenet(root: str, subfolder: str = "gesturenet", scale: str = "full",
                     device="cuda", dtype: Optional[torch.dtype] = None):
-    return _build("gesturenet", _load_dir(os.path.join(root, subfolder)), scale, device, dtype)
+    return _build("gesturenet", _load_dir(os.path.join(root, subfolder)),
+                  model_configs(scale)["gesturenet"], device, dtype)
 
 
 def load_vae(root: str, subfolder: str = "vae", scale: str = "full", device="cuda",
              dtype: Optional[torch.dtype] = None):
-    return _build("vae", _load_dir(os.path.join(root, subfolder)), scale, device, dtype)
+    return _build("vae", _load_dir(os.path.join(root, subfolder)),
+                  model_configs(scale)["vae"], device, dtype)
 
 
 def load_clip(root: str, subfolder: str, scale: str = "full", device="cuda",
@@ -130,7 +138,7 @@ def load_clip(root: str, subfolder: str, scale: str = "full", device="cuda",
     state = _load_dir(os.path.join(root, subfolder))
     name = ("image_encoder" if any(k.startswith("vision_model.") for k in state)
             else "text_encoder")
-    return _build(name, state, scale, device, dtype)
+    return _build(name, state, model_configs(scale)[name], device, dtype)
 
 
 def load_pretrained(root: str, mode: str = "vgl", device="cuda",
@@ -143,3 +151,34 @@ def load_pretrained(root: str, mode: str = "vgl", device="cuda",
     if mode == "vgl":
         models["gesturenet"] = load_gesturenet(root, **kw)
     return make_pipeline(models, mode)
+
+
+def load_training_models(root: str, mode: str = "vgl", configs: Optional[dict] = None,
+                         device="cuda", frozen_dtype: torch.dtype = torch.float32):
+    """``(unet, controlnet or None, {vae, image_encoder, text_encoder})`` for
+    training, from the weights under ``root`` (the contract of the JAX
+    ``load_pretrained`` in training): the trainable model (the UNet in
+    ``vl``, the GestureNet in ``vgl``) in fp32 with ``requires_grad`` on, in
+    train mode; the frozen towers (and the VGL UNet) in ``frozen_dtype``,
+    ``requires_grad`` off.  ``configs`` (name -> config, default
+    ``model_configs("full")``) sets the widths and ``remat``.  VGL needs
+    ``<root>/gesturenet/``: no GestureNet is made from the UNet."""
+    if mode not in ("vl", "vgl"):
+        raise ValueError(f"unknown mode {mode!r}")
+    configs = configs or model_configs("full")
+    names = ["vae", "image_encoder", "text_encoder", "unet"] + (["gesturenet"] * (mode == "vgl"))
+    trainable = "unet" if mode == "vl" else "gesturenet"
+    models = {}
+    for name in names:
+        sub = os.path.join(root, name)
+        if not os.path.isdir(sub):
+            raise FileNotFoundError(f"{sub}: no such weight folder (--mode {mode} trains from "
+                                    f"{', '.join(n + '/' for n in names)} under the tree)")
+        state = _load_dir(sub)
+        if name == trainable:
+            model = _build(name, state, configs[name], device, None).float()
+            models[name] = model.train().requires_grad_(True)
+        else:
+            models[name] = _build(name, state, configs[name], device, frozen_dtype)
+    modules = {k: models[k] for k in ("vae", "image_encoder", "text_encoder")}
+    return models["unet"], models.get("gesturenet"), modules
