@@ -1,8 +1,9 @@
 """Drive the PyTorch port's VGL clip, its entry points (weight loading, the
 server, the batch-inference CLI), its VGL / VL training (from a weight folder
-and a Bridge-layout dataset, and on synthetic clips) and its tools (eval
-with LPIPS, the 8-bit AdamW A/B, the app) once on one CUDA card, with its
-kernels.
+and a Bridge-layout dataset, and on synthetic clips), its tools (eval
+with LPIPS, the 8-bit AdamW A/B, the app) and its curation path (the
+This/That labeler and the flow-trajectory stage) once on one CUDA card, with
+its kernels.
 
     python3 chip_smoke.py
 
@@ -86,9 +87,27 @@ Phases (any failure raises and exits nonzero):
                  step); the host ms of each optimizer update
   7. VL train    the same on config/train_image2video.yaml (the 1.525 B-param
                  UNet trains in fp32), 3 steps, the last one profiled
+ 10. curation    (after phase 7) SAM ViT-H, YOLOv8n (one class) and RAFT-large
+                 with seeded random weights, written as their published
+                 formats and loaded through the native wrappers onto the card
+                 (fp32, TF32 off); an instance tree at 480x640 (PNG bytes;
+                 three instances of 20-32 frames, one too long, one too
+                 short); select_frames.process_dataset with YOLOv8n and with
+                 a paint detector (a stand-in for the trained gripper
+                 weights), then trajectory.process_dataset_traj with RAFT
+                 and SAM over the curated 14-frame instances; SAM called
+                 directly with a point and a box and with 20 labelled points
+                 (one encode for both).  Checks: the message counts; the card
+                 against the port on the CPU (YOLO's 6,300 raw predictions,
+                 SAM's embedding and mask, RAFT's flow for one pair) and one
+                 instance's files and messages, within the bounds stated at
+                 CURATION_BOUND; no K1-K4 launch.  Prints load, stage and
+                 model times (CUDA events), one RAFT pair and one SAM encode
+                 under torch.profiler (device ms, busy share, largest
+                 kernels) and the peak memory
 
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the paths of phases 5-9, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-10, each counted from zero), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -1694,6 +1713,377 @@ def phase_weights_and_data(tree, expected, smi):
     return rep, launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+# The curation path at full width: SAM ViT-H, YOLOv8n with one class and
+# RAFT-large (20 iterations), seeded random weights, fp32.  An instance tree
+# as prepare_bridge leaves one (480x640 frames as PNG bytes under im_N.jpg,
+# policy_out.pkl, lang.txt): three instances of 20-32 frames, one too long,
+# one too short.  The scene paints the gripper magenta, moving (8, 4) px a
+# frame; the gripper closes at frame 5 and opens 6 frames before the end.
+CURATION = dict(frames=(20, 26, 32, 57, 10), hw=(480, 640), seed=77, raft_iters=20,
+                box=(64, 48), start=(200, 200), step=(8, 4), close=5)
+GRIPPER = (255, 0, 255)
+# Bounds of phase 10: the card against the port on the CPU, the same weights
+# and input, fp32 on both, TF32 off on the card; errors are the max abs error
+# over the max abs CPU value.  The fp32 readings on an H100 (YOLO 1.1e-7, SAM
+# 3.5e-6, RAFT 2.1e-6) sit far below the bounds; the bounds sit below what
+# the same comparison reads on the card in a lower precision, which the phase
+# measures every run as a negative control and requires to exceed them, so a
+# precision slip fails: SAM and RAFT with TF32 on (10 mantissa bits; 9.1e-4
+# and 6.1e-4 on an H100), YOLO in bf16 autocast (cuDNN keeps YOLOv8n's fp32
+# convolutions on FFMA kernels with TF32 allowed: its TF32 reading equals the
+# fp32 one, and is logged).
+# - YOLO's raw predictions 1e-4, the box columns over their max and the
+#   class scores over theirs (next to pixel boxes a score error would vanish):
+#   ~60 convolutions that cuDNN and the CPU sum in other orders.
+# - SAM's image embedding 1e-4: 32 ViT-H blocks; rounding differences grow
+#   through the residual stream.
+# - RAFT's flow 1e-4: 20 recurrent iterations feed each estimate back into
+#   the correlation lookup, so each iteration's rounding compounds.
+# - masks IoU >= 0.999: a mask thresholds logits at 0, and pixels whose logit
+#   lies within the embedding's error of 0 may flip.  Held for the mask the
+#   labeler writes, for a point and a box, and for 20 labelled points (the
+#   trajectory stage's prompt: 24 slots).
+# - traj_data.txt points within 1e-3 px: the chain truncates to whole
+#   pixels, so the same start and flows within the bound give the same
+#   points.  The CPU run picks its start from the card's SAM mask of that
+#   frame: one flipped pixel shifts the order of the mask's pixels, and the
+#   seeded pick then lands elsewhere (the mask itself is held by the IoU).
+CURATION_BOUND = dict(yolo=1e-4, sam=1e-4, raft=1e-4, iou=0.999, px=1e-3)
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuBLAS matmuls and cuDNN convolutions inside the block, off
+    again after it (the wrappers turn it off)."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+class PaintDetector:
+    """Stands in for the trained gripper weights (not in the repository):
+    the xywh box of the gripper's paint, so the labeler's success path runs."""
+
+    def boxes_xywh(self, image_bgr):
+        ys, xs = np.nonzero((image_bgr == np.asarray(GRIPPER[::-1], np.uint8)).all(-1))
+        if not len(xs):
+            return np.zeros((0, 4), np.float32)
+        x0, x1, y0, y1 = xs.min(), xs.max() + 1, ys.min(), ys.max() + 1
+        return np.array([[(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0]], np.float32)
+
+
+class RecordingSegmenter:
+    """The card's segmenter, keeping each labelled mask by its frame's bytes;
+    ``replay`` serves them to another run."""
+
+    def __init__(self, seg):
+        self.seg, self.masks = seg, {}
+
+    @staticmethod
+    def key(image):
+        import hashlib
+
+        return hashlib.sha1(np.ascontiguousarray(image).tobytes()).hexdigest()
+
+    def predict_mask_labeled(self, image_rgb, points, labels):
+        mask = self.seg.predict_mask_labeled(image_rgb, points, labels)
+        self.masks[self.key(image_rgb)] = mask
+        return mask
+
+    def replay(self):
+        rec = self
+
+        class Replay:
+            def predict_mask_labeled(self, image_rgb, points, labels):
+                return rec.masks[rec.key(image_rgb)]
+        return Replay()
+
+
+def curation_frame(bg, i):
+    (x0, y0), (dx, dy), (w, h) = CURATION["start"], CURATION["step"], CURATION["box"]
+    img = bg.copy()
+    img[y0 + dy * i:y0 + dy * i + h, x0 + dx * i:x0 + dx * i + w] = GRIPPER
+    return img
+
+
+def write_curation_tree(root, smi):
+    """The raw instance tree; returns the instance names."""
+    import pickle
+
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    t0 = time.perf_counter()
+    names = []
+    for j, n in enumerate(CURATION["frames"]):
+        d = os.path.join(root, f"{j:06d}")
+        os.makedirs(d)
+        bg = instance_image(CURATION["seed"] + j, CURATION["hw"])
+        for i in range(n):
+            path = os.path.join(d, f"im_{i}.jpg")
+            if 14 <= n <= 56 or i == 0:  # the others are refused before a frame is read
+                video_io.write_png(path, curation_frame(bg, i))
+            else:
+                shutil.copyfile(os.path.join(d, "im_0.jpg"), path)
+        closed = range(CURATION["close"], n - 6)
+        with open(os.path.join(d, "policy_out.pkl"), "wb") as f:
+            pickle.dump([{"actions": np.array([0.0] * 6 + [0.0 if i in closed else 1.0])}
+                         for i in range(n)], f)
+        with open(os.path.join(d, "lang.txt"), "w") as f:
+            f.write(f"{DATA_PROMPTS[j % len(DATA_PROMPTS)]}\n")
+        names.append(os.path.basename(d))
+    log(f"[curation] wrote {len(names)} instances ({sum(CURATION['frames'])} frames at "
+        f"{CURATION['hw'][0]}x{CURATION['hw'][1]}, PNG bytes) in "
+        f"{time.perf_counter() - t0:.3f} s  [{smi}]")
+    return names
+
+
+def curation_checkpoints(root, smi):
+    """Seeded random full-width models written as their published formats
+    (a pickled fp16 detection model as ultralytics saves one, a SAM state
+    dict, a RAFT state dict with the ``module.`` prefix); returns the paths."""
+    from this_and_that_vdm_tpu_torch.models import raft, sam, yolov8
+    from this_and_that_vdm_tpu_torch.weights.convert import save_ultralytics_checkpoint
+
+    t0 = time.perf_counter()
+    torch.manual_seed(CURATION["seed"])
+    with torch.device("cuda"):
+        y = yolov8.YOLOv8(yolov8.YOLOv8Config.n_scale(1))
+        s = sam.Sam(sam.SamConfig.vit_h())
+        r = raft.RAFT(raft.RAFTConfig.large())
+    paths = {k: os.path.join(root, f) for k, f in (("yolo", "gripper.pt"),
+                                                   ("sam", "sam.pth"), ("raft", "raft.pth"))}
+    save_ultralytics_checkpoint(paths["yolo"], model=y)
+    torch.save(s.state_dict(), paths["sam"])
+    torch.save({f"module.{k}": v for k, v in r.state_dict().items()}, paths["raft"])
+    n = {k: sum(p.numel() for p in m.parameters()) for k, m in (("yolo", y), ("sam", s),
+                                                                 ("raft", r))}
+    del y, s, r
+    torch.cuda.empty_cache()
+    log(f"[curation] built and wrote the models {n} params in "
+        f"{time.perf_counter() - t0:.3f} s  [{smi}]")
+    return paths, n
+
+
+def yolo_err(got, want):
+    """YOLO's error: the box columns (pixels) and the score columns (0-1),
+    each over its own max abs CPU value."""
+    return max(rel_err(got[:, :4], want[:, :4])[1], rel_err(got[:, 4:], want[:, 4:])[1])
+
+
+def iou(a, b):
+    """Intersection over union; 1.0 for two empty masks."""
+    union = float((a | b).sum())
+    return float((a & b).sum()) / union if union else 1.0
+
+
+def read_mask(path):
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    return video_io.read_png(path)[..., 0] > 127
+
+
+def phase_curation(smi):
+    """Phase 10: the This/That labeler and the flow-trajectory stage on the
+    card at full width, against the port on the CPU.  Returns (report,
+    launch counts of the phase)."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.curation import detectors, select_frames, trajectory
+    from this_and_that_vdm_tpu_torch.models.raft import pad_to_multiple
+    from this_and_that_vdm_tpu_torch.models.sam import preprocess_np, transform_coords_np
+    from this_and_that_vdm_tpu_torch.models.yolov8 import letterbox_np
+    from this_and_that_vdm_tpu_torch.utils.video_io import read_image
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_curation_")
+    rep = {}
+    try:
+        raw = os.path.join(root, "raw")
+        names = write_curation_tree(raw, smi)
+        paths, rep["params"] = curation_checkpoints(root, smi)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        det = detectors.NativeGripperDetector(paths["yolo"], device="cuda")
+        seg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cuda")
+        flow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
+                                        device="cuda")
+        sync()
+        rep["load_s"] = time.perf_counter() - t0
+        log(f"[curation] loaded YOLOv8n, SAM ViT-H, RAFT-large from their files onto the card "
+            f"in {rep['load_s']:.3f} s  [{smi}]")
+
+        # the labeler with the detector's own weights (random: soft failures
+        # expected), then with the paint detector, which curates the
+        # instances the trajectory stage reads
+        t0 = time.perf_counter()
+        rep["select_yolo"] = select_frames.process_dataset(raw, os.path.join(root, "out_yolo"),
+                                                           det, seg)
+        sync()
+        rep["select_yolo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        curated = os.path.join(root, "curated")
+        rep["select"] = select_frames.process_dataset(raw, curated, PaintDetector(), seg)
+        sync()
+        rep["select_s"] = time.perf_counter() - t0
+        log(f"[curation] select_frames with YOLOv8n: {rep['select_yolo']} in "
+            f"{rep['select_yolo_s']:.3f} s; with the paint detector: {rep['select']} in "
+            f"{rep['select_s']:.3f} s  [{smi}]")
+        want = {"Success!": 3, "The number of frames is too long": 1,
+                "The number of frames is too short": 1}
+        if rep["select"] != want or sum(rep["select_yolo"].values()) != len(names):
+            raise RuntimeError(f"select_frames: {rep['select']} / {rep['select_yolo']}")
+        rec = RecordingSegmenter(seg)
+        t0 = time.perf_counter()
+        rep["traj"] = trajectory.process_dataset_traj(curated, flow_fn=flow, segmenter=rec)
+        sync()
+        rep["traj_s"] = time.perf_counter() - t0
+        log(f"[curation] trajectory (RAFT + SAM) over {sum(want.values()) - 2} curated "
+            f"instances: {rep['traj']} in {rep['traj_s']:.3f} s  [{smi}]")
+        if sum(rep["traj"].values()) != 3:
+            raise RuntimeError(f"trajectory: {rep['traj']}")
+
+        # the full-width models called directly, whatever the messages, on the
+        # frame whose mask the labeler makes (the CPU side encodes it too): a
+        # point and a box, then 20 labelled points (24 slots), one encode
+        src = os.path.join(raw, names[0])
+        rgb = read_image(os.path.join(src, "im_0.jpg"))
+        bgr = np.ascontiguousarray(rgb[..., ::-1])
+        point, box = [[232.0, 224.0]], [200.0, 200.0, 264.0, 248.0]
+        pts20 = np.random.RandomState(5).rand(20, 2) * [640, 480]
+        e0 = seg.encodes
+        m1 = seg.predict_mask(bgr, point, box)
+        m2 = seg.predict_mask_labeled(rgb, pts20, np.ones(20))
+        rep["cache_encodes"] = seg.encodes - e0
+        if m1.shape != CURATION["hw"] or m2.shape != CURATION["hw"] or rep["cache_encodes"] != 1:
+            raise RuntimeError(f"SAM direct calls: {m1.shape} {m2.shape} encodes "
+                               f"{rep['cache_encodes']}")
+        rep["launches"] = ops.launch_counts()
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+        # times on the card (CUDA events)
+        dev = seg.device
+        frames = [read_image(os.path.join(src, f"im_{i}.jpg")) for i in (0, 1)]
+        with torch.no_grad():
+            x = torch.from_numpy(preprocess_np(rgb, seg.cfg.img_size)[0]).to(dev)
+            emb = seg.model.encode_image(x)
+            pts = np.zeros((1, 24, 2), np.float32)
+            pts[0, :20] = transform_coords_np(pts20, CURATION["hw"], seg.cfg.img_size)
+            lbl = np.full((1, 24), -1, np.int64)
+            lbl[0, :20] = 1
+            pts, lbl = torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)
+            xy = torch.from_numpy(np.ascontiguousarray(
+                letterbox_np(bgr, det.imgsz)[0][None, ..., ::-1], np.float32) / 255.0).to(dev)
+            f1, f2 = (torch.from_numpy(pad_to_multiple(f)[0][None].astype(np.float32)).to(dev)
+                      for f in frames)
+            rep["ms"] = dict(
+                sam_encode=cuda_ms(lambda: seg.model.encode_image(x), iters=3),
+                sam_predict_24_slots=cuda_ms(lambda: seg.model.predict(emb, pts, lbl)),
+                yolo_frame=cuda_ms(lambda: det.model(xy)),
+                raft_pair=cuda_ms(lambda: flow.model(f1, f2, iters=CURATION["raft_iters"]),
+                                  iters=3))
+            # where the time goes: one RAFT pair and one SAM encode
+            rep["profile"] = {k: profile_step(fn) for k, fn in (
+                ("raft_pair", lambda: flow.model(f1, f2, iters=CURATION["raft_iters"])),
+                ("sam_encode", lambda: seg.model.encode_image(x)))}
+        log(f"[curation] card ms: {rep['ms']}; cache: {rep['cache_encodes']} encode for two "
+            f"prompts on one frame; peak memory {rep['peak_bytes'] / 2**30:.2f} GiB; K1-K4 "
+            f"launches {rep['launches']}  [{smi}]")
+        for k, (dt, busy, span, wall) in rep["profile"].items():
+            log(f"[curation] profile {k}: device {dt['total_ms']:.3f} ms in "
+                f"{dt['activities']} activities, busy {busy:.3f} of a {span:.3f} ms span, "
+                f"wall {wall:.3f} ms; largest {dt['top_ms'][:4]}  [{smi}]")
+
+        # the card against the port on the CPU: one input each, the direct
+        # SAM calls, then the files and messages of one instance of each stage
+        t0 = time.perf_counter()
+        cdet = detectors.NativeGripperDetector(paths["yolo"], device="cpu")
+        cseg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cpu")
+        cflow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
+                                         device="cpu")
+        err, err_tf32 = {}, {}
+        want_yolo = torch.from_numpy(cdet.predict(bgr)[0])
+        err["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+        inst = names[0]
+        out_cpu = os.path.join(root, "cpu", inst)
+        msg_yolo = (select_frames.process_instance(src, os.path.join(root, "yolo_card"), det)[1],
+                    select_frames.process_instance(src, os.path.join(root, "yolo_cpu"), cdet)[1])
+        ok, msg = select_frames.process_instance(src, out_cpu, PaintDetector(), cseg)
+        seg.predict_mask(bgr, [[0.0, 0.0]])  # the card's embedding of the same frame
+        want_emb = cseg._cache[0]
+        err["sam"] = rel_err(seg._cache[0].cpu(), want_emb)[1]
+        e0 = cseg.encodes
+        err["iou_point_box"] = iou(m1, cseg.predict_mask(bgr, point, box))
+        err["iou_20_points"] = iou(m2, cseg.predict_mask_labeled(rgb, pts20, np.ones(20)))
+        rep["direct_mask_area"] = [float(m1.mean()), float(m2.mean())]
+        if cseg.encodes != e0:
+            raise RuntimeError("the CPU SAM encoded the labeler's frame twice")
+        card_dir = os.path.join(curated, inst)
+        for name in sorted(os.listdir(out_cpu)):
+            if name.startswith("im_") or name in ("data.txt", "lang.txt"):
+                with open(os.path.join(out_cpu, name), "rb") as a, \
+                        open(os.path.join(card_dir, name), "rb") as b:
+                    if a.read() != b.read():
+                        raise RuntimeError(f"curation: {inst}/{name} differs from the CPU's")
+        err["mask_iou"] = iou(read_mask(os.path.join(out_cpu, "mask_0.png")),
+                              read_mask(os.path.join(card_dir, "mask_0.png")))
+        want_flow = torch.from_numpy(cflow(*frames))
+        err["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
+        # negative control: the same three comparisons with TF32 on the card,
+        # and YOLO's in bf16
+        with tf32_on(), torch.no_grad():
+            err_tf32["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+            err_tf32["sam"] = rel_err(seg.model.encode_image(x).cpu(), want_emb)[1]
+            err_tf32["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
+        with torch.autocast("cuda", torch.bfloat16):
+            err_tf32["yolo_bf16"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+        # the trajectory of an instance whose card run wrote traj_data.txt,
+        # on the CPU from a copy of its curated folder
+        traj_inst = next((n for n in names[:3]
+                          if os.path.exists(os.path.join(curated, n, "traj_data.txt"))), None)
+        if traj_inst is None:
+            raise RuntimeError(f"trajectory: no instance wrote traj_data.txt: {rep['traj']}")
+        traj_cpu = os.path.join(root, "traj_cpu")
+        shutil.copytree(os.path.join(curated, traj_inst), traj_cpu,
+                        ignore=shutil.ignore_patterns("traj_data.txt"))
+        ok_t, msg_t = trajectory.generate_instance_traj(traj_cpu, flow_fn=cflow,
+                                                        segmenter=rec.replay(),
+                                                        rng=np.random.RandomState(0))
+        rep["cpu_s"] = time.perf_counter() - t0
+        pts_card = np.loadtxt(os.path.join(curated, traj_inst, "traj_data.txt"), ndmin=2)
+        pts_cpu = np.loadtxt(os.path.join(traj_cpu, "traj_data.txt"), ndmin=2) if ok_t else None
+        err["traj_px"] = (float(np.abs(pts_card - pts_cpu).max())
+                          if pts_cpu is not None and pts_card.shape == pts_cpu.shape else None)
+        rep["against_cpu"] = dict(err=err, err_tf32=err_tf32,
+                                  messages=dict(yolo=msg_yolo, select=msg, traj_instance=traj_inst,
+                                                traj_points=len(pts_card), traj_cpu=msg_t))
+        log(f"[curation] card against the CPU (bounds {CURATION_BOUND}): {err}; with TF32 on "
+            f"and YOLO in bf16 (SAM, RAFT and yolo_bf16 must exceed the bounds) {err_tf32}; "
+            f"direct mask areas "
+            f"{rep['direct_mask_area']}; messages {rep['against_cpu']['messages']}; CPU side "
+            f"{rep['cpu_s']:.3f} s  [{smi}]")
+        b = CURATION_BOUND
+        if (msg_yolo[0] != msg_yolo[1] or not ok or not ok_t
+                or any(err[k] > b[k] for k in ("yolo", "sam", "raft"))
+                or min(err["mask_iou"], err["iou_point_box"], err["iou_20_points"]) < b["iou"]
+                or err["traj_px"] is None or err["traj_px"] > b["px"]):
+            raise RuntimeError(f"curation: the card and the CPU disagree: {rep['against_cpu']}")
+        if min(err_tf32["sam"] / b["sam"], err_tf32["raft"] / b["raft"],
+               err_tf32["yolo_bf16"] / b["yolo"]) <= 1:
+            raise RuntimeError(f"curation: a lower precision on the card stays within the fp32 "
+                               f"bounds, so they cannot see a precision slip: {err_tf32}")
+        if any(rep["launches"].values()):
+            raise RuntimeError(f"curation launched K1-K4: {rep['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"[curation] phase wall {rep['wall_s']:.3f} s  [{smi}]")
+    return rep, rep["launches"]
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1719,8 +2109,11 @@ def main():
         shutil.rmtree(tree, ignore_errors=True)
     torch.cuda.empty_cache()
     train = [phase_train(*args, smi) for args in TRAIN_CONFIGS]
+    torch.cuda.empty_cache()
+    curation, curation_counts = phase_curation(smi)
     paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
-                 **{f"train_{t['mode']}": t["launches"] for t in train})
+                 **{f"train_{t['mode']}": t["launches"] for t in train},
+                 curation=curation_counts)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1737,7 +2130,7 @@ def main():
                        backward_rel_err=backward, denoiser_rel_l2=rel_l2,
                        denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, entry_points=entry, train=train,
-                       weights_and_data=weights_data,
+                       weights_and_data=weights_data, curation=curation,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -50,7 +50,8 @@ def test_training_tools_are_among_the_modules_imported():
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     for name in ("data.bridge", "curation.prepare_bridge", "training.validation",
                  "training.train_loop", "utils.lpips", "utils.profiling", "cli.adam8bit_ab",
-                 "app"):
+                 "app", "models.sam", "models.yolov8", "models.raft", "curation.detectors",
+                 "curation.select_frames", "curation.trajectory", "curation.flow_eval"):
         assert f"{pkg.__name__}.{name}" in names, name
 
 
@@ -135,6 +136,73 @@ print("ok", bad)
 def test_entry_points_work_without_optional_packages():
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _WITHOUT_OPTIONAL], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok []", res.stdout
+
+
+# the curation path with cv2, PIL and the perception packages blocked: the
+# models, the PIL-free and cv2-free resizes, the PNG mask and both stages;
+# only farneback_flow needs cv2, and only when it is called
+_CURATION_WITHOUT_OPTIONAL = """
+import os, pickle, sys, tempfile
+BLOCKED = ("cv2", "PIL", "ultralytics", "segment_anything", "imageio", "transformers")
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from this_and_that_vdm_tpu_torch.curation import (detectors, flow_eval, select_frames,
+                                                  trajectory)
+from this_and_that_vdm_tpu_torch.models import raft, sam, yolov8
+from this_and_that_vdm_tpu_torch.utils import video_io
+
+img = (np.arange(30 * 50 * 3) % 251).astype(np.uint8).reshape(30, 50, 3)
+seg = detectors.NativeSAMSegmenter(model=sam.Sam(sam.SamConfig.tiny()), device="cpu")
+det = detectors.NativeGripperDetector(model=yolov8.YOLOv8(yolov8.YOLOv8Config.tiny()),
+                                      imgsz=64, device="cpu")
+flow = detectors.NativeRAFTFlow(model=raft.RAFT(raft.RAFTConfig.tiny()), iters=2, device="cpu")
+assert seg.predict_mask(img, [[10.0, 12.0]], [2.0, 3.0, 30.0, 20.0]).shape == (30, 50)
+assert det.boxes_xywh(img).shape[1] == 4  # a letterbox that resizes (64 / 50)
+assert flow(img, img[::-1].copy()).shape == (30, 50, 2)
+try:
+    detectors.farneback_flow(img, img)
+    raise AssertionError("Farneback ran with no cv2")
+except RuntimeError as e:
+    assert "cv2" in str(e), e
+
+d = tempfile.mkdtemp()
+src = os.path.join(d, "raw", "000000")
+os.makedirs(src)
+for i in range(20):
+    video_io.write_png(os.path.join(src, f"im_{i}.jpg"), np.full((30, 50, 3), i * 5, np.uint8))
+with open(os.path.join(src, "policy_out.pkl"), "wb") as f:
+    pickle.dump([{"actions": np.array([0.0 if 3 <= i < 15 else 1.0])} for i in range(20)], f)
+with open(os.path.join(src, "lang.txt"), "w") as f:
+    f.write("push the cup\\n")
+
+class Boxes:
+    def boxes_xywh(self, image_bgr):
+        return np.array([[20.0, 14.0, 18.0, 18.0]], np.float32)
+
+msgs = select_frames.process_dataset(os.path.join(d, "raw"), os.path.join(d, "out"), Boxes(), seg)
+assert msgs == {"Success!": 1}, msgs
+out = os.path.join(d, "out", "000000")
+assert video_io.read_png(os.path.join(out, "mask_0.png")).shape == (30, 50, 3)
+msgs = trajectory.process_dataset_traj(os.path.join(d, "out"), flow_fn=flow, segmenter=seg)
+assert sum(msgs.values()) == 1, msgs
+bg = np.zeros((64, 64, 3), np.uint8)
+frames, gt, _ = flow_eval.make_moving_patch_clip(bg, n_frames=4, patch_size=16,
+                                                 start_rc=(10, 10))
+assert frames.shape == (4, 64, 64, 3)
+bad = sorted(m for m in sys.modules if m in ("jax", "this_and_that_vdm_tpu")
+             or (m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
+print("ok", bad)
+"""
+
+
+def test_curation_path_works_without_optional_packages():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _CURATION_WITHOUT_OPTIONAL], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok []", res.stdout

@@ -33,15 +33,18 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, rgb: np.ndarray) -> str:
-    """Write an ``[H, W, 3]`` uint8 RGB image (every row unfiltered)."""
+    """Write an ``[H, W, 3]`` uint8 RGB image, or an ``[H, W]`` grayscale
+    one (as ``cv2.imwrite`` writes a 2-D array), every row unfiltered."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim == 2:
+        rgb = rgb[..., None]
     h, w, c = rgb.shape
-    if c != 3:
-        raise ValueError(f"write_png takes [H, W, 3] RGB, got {rgb.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    if c not in (1, 3):
+        raise ValueError(f"write_png takes [H, W, 3] RGB or [H, W] gray, got {rgb.shape}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * c)], axis=1)
     with open(path, "wb") as f:
         f.write(_PNG_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 0, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes())))
         f.write(_chunk(b"IEND", b""))
     return path

@@ -171,3 +171,238 @@ def flax_adam8bit_state_to_torch(state, params):
                 flat = _dequantize(q, (perm.size,), signed)
                 out[key] = _quantize(flat[torch.from_numpy(perm)], signed)
     return Adam8bitState(int(np.asarray(state.count)), mu, nu)
+
+
+# ------------------------------------------------- perception models (curation)
+
+def _unfold_ints(seg: str) -> str:
+    """A flax scope with folded list indices back to dotted form:
+    ``cv2_0_1`` -> ``cv2.0.1``, ``blocks_3`` -> ``blocks.3``."""
+    parts = []
+    base, _, idx = seg.rpartition("_")
+    while base and idx.isdigit():
+        parts.insert(0, idx)
+        seg = base
+        base, _, idx = seg.rpartition("_")
+    return ".".join([seg] + parts)
+
+
+_BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _perception_leaf(path, name: str, arr: np.ndarray):
+    """(dotted module path, torch leaf, array) of one leaf of a JAX
+    perception model; ``FrozenBatchNorm``'s ``mean``/``var`` become the
+    running statistics."""
+    if name in _BN_LEAVES:
+        return ".".join(_unfold_ints(p) for p in path), _BN_LEAVES[name], arr
+    leaf, t = _leaf(name, arr)
+    return ".".join(_unfold_ints(p) for p in path), leaf, t
+
+
+def _with_bn_counters(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Add ``num_batches_tracked`` (0) beside every batch norm's statistics,
+    as ``nn.BatchNorm2d``'s state dict holds it."""
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = np.array(0, np.int64)
+    return sd
+
+
+def flax_yolo_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX YOLOv8 parameters -> the ultralytics ``DetectionModel`` state
+    dict that ``models/yolov8.YOLOv8`` loads (inverse of the JAX
+    ``yolo_state_dict_to_flax``; the fixed ``arange`` DFL weight, which the
+    JAX model computes in closed form, is put back)."""
+    sd = {}
+    for path, name, arr in _walk(params.get("params", params)):
+        mod, leaf, t = _perception_leaf(path, name, arr)
+        sd[f"{mod}.{leaf}"] = t
+    reg_max = sd["model.22.cv2.0.2.weight"].shape[0] // 4
+    sd["model.22.dfl.conv.weight"] = np.arange(reg_max, dtype=np.float32).reshape(1, reg_max, 1, 1)
+    return _with_bn_counters(sd)
+
+
+def flax_raft_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX RAFT parameters -> the princeton-vl RAFT state dict (no
+    ``module.`` prefix) that ``models/raft.RAFT`` loads (inverse of the JAX
+    ``raft_state_dict_to_flax``).  The official residual block registers its
+    shortcut norm twice, so each ``downsample.1`` batch norm also appears as
+    ``norm3``."""
+    sd = {}
+    for path, name, arr in _walk(params.get("params", params)):
+        mod, leaf, t = _perception_leaf(path, name, arr)
+        sd[f"{mod.replace('flow_head_', 'flow_head.')}.{leaf}"] = t
+    for k in [k for k in sd if ".downsample.1." in k]:
+        sd[k.replace(".downsample.1.", ".norm3.")] = sd[k]
+    return _with_bn_counters(sd)
+
+
+_SAM_SEQ = {"neck_conv1": "neck.0", "neck_ln1": "neck.1", "neck_conv2": "neck.2",
+            "neck_ln2": "neck.3", "mask_conv1": "mask_downscaling.0",
+            "mask_ln1": "mask_downscaling.1", "mask_conv2": "mask_downscaling.3",
+            "mask_ln2": "mask_downscaling.4", "mask_conv3": "mask_downscaling.6",
+            "upscale_conv1": "output_upscaling.0", "upscale_ln": "output_upscaling.1",
+            "upscale_conv2": "output_upscaling.3", "patch_embed": "patch_embed.proj"}
+_SAM_RENAMES = {"hyper_mlps": "output_hypernetworks_mlps", "iou_head": "iou_prediction_head"}
+_SAM_EMBEDS = {"point_embed_neg": "point_embeddings.0", "point_embed_pos": "point_embeddings.1",
+               "box_embed_1": "point_embeddings.2", "box_embed_2": "point_embeddings.3",
+               "not_a_point": "not_a_point_embed", "no_mask": "no_mask_embed"}
+
+
+def flax_sam_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX SAM parameters -> the ``sam_vit_*.pth`` state dict that
+    ``models/sam.Sam`` loads (inverse of the JAX ``sam_state_dict_to_flax``):
+    the flat prompt embeddings go back to ``(1, C)`` embedding tables, the
+    einsum kernels of the mask upscaler to ``ConvTranspose2d``'s
+    ``(Cin, Cout, 2, 2)``, the named sequence members to their indices."""
+    sd = {}
+    for path, name, arr in _walk(params.get("params", params)):
+        if name in _SAM_EMBEDS:
+            sd[f"{path[0]}.{_SAM_EMBEDS[name]}.weight"] = arr.reshape(1, -1)
+            continue
+        if name in ("iou_token", "mask_tokens"):
+            sd[f"{path[0]}.{name}.weight"] = arr
+            continue
+        if name == "gaussian":
+            sd[".".join(path) + ".positional_encoding_gaussian_matrix"] = arr
+            continue
+        segs = [_SAM_SEQ.get(p, p) for p in path]
+        for i, p in enumerate(segs):
+            base, _, idx = p.rpartition("_")
+            if base in _SAM_RENAMES and idx.isdigit():
+                segs[i] = f"{_SAM_RENAMES[base]}_{idx}"
+            elif p in _SAM_RENAMES:
+                segs[i] = _SAM_RENAMES[p]
+        if name in ("rel_pos_h", "rel_pos_w", "pos_embed"):
+            leaf, t = name, arr
+        elif name == "kernel" and path[-1].startswith("upscale_conv"):
+            leaf, t = "weight", arr.transpose(2, 3, 0, 1)
+        else:
+            leaf, t = _leaf(name, arr)
+        sd[".".join(_unfold_ints(p) for p in segs) + "." + leaf] = t
+    return sd
+
+
+# the globals an ultralytics checkpoint needs besides its own classes and
+# torch's modules: tensor rebuilds, containers, and the numpy numbers of its
+# training metadata
+_ULTRALYTICS_GLOBALS = {
+    ("torch._tensor", "_rebuild_from_type_v2"), ("torch.nn.parameter", "Parameter"),
+    ("torch", "Tensor"), ("torch", "Size"),
+    ("collections", "OrderedDict"), ("builtins", "set"), ("builtins", "frozenset"),
+    ("_codecs", "encode"),  # bytes in a protocol-2 pickle
+    ("numpy", "dtype"), ("numpy", "ndarray"), ("numpy.core.multiarray", "scalar"),
+    ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "scalar"),
+    ("numpy._core.multiarray", "_reconstruct"),
+}
+
+
+def load_ultralytics_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """The flat numpy state dict of an ultralytics ``.pt`` checkpoint,
+    without the ultralytics package.
+
+    Ultralytics pickles the whole ``DetectionModel`` module, so a plain
+    ``torch.load`` needs its classes.  The unpickler here resolves every
+    ``ultralytics.*`` and ``torch.nn.modules.*`` class to an empty shell
+    that keeps the instance ``__dict__``, and lets through only torch's
+    tensor rebuilds and the plain containers and numpy numbers of the
+    training metadata; any other global raises, so a crafted file cannot
+    call code.  The module tree is walked through ``_parameters`` /
+    ``_buffers`` / ``_modules`` for the dotted names; floating leaves (fp16
+    in ultralytics files) are upcast to fp32, integer buffers keep their
+    type.  The ``ema`` model is taken when present, as ultralytics'
+    ``attempt_load_one_weight`` does."""
+    import pickle
+    import types
+
+    import torch
+
+    class _Shell:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __setstate__(self, state):
+            for part in (state if isinstance(state, tuple) else (state,)):
+                if isinstance(part, dict):
+                    self.__dict__.update(part)
+
+    class _Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            module = "builtins" if module == "__builtin__" else module  # protocol 2
+            if module.split(".")[0] == "ultralytics" or module.startswith("torch.nn.modules."):
+                return type(name, (_Shell,), {})
+            if ((module, name) in _ULTRALYTICS_GLOBALS
+                    or (module == "torch._utils" and name.startswith("_rebuild_"))
+                    or (module == "torch" and (name.endswith("Storage") or isinstance(
+                        getattr(torch, name, None), torch.dtype)))):
+                return super().find_class(module, name)
+            raise pickle.UnpicklingError(f"{path}: {module}.{name} is not part of an "
+                                         "ultralytics checkpoint; refusing to load it")
+
+    shim = types.ModuleType("ultralytics_shim")
+    shim.Unpickler = _Unpickler
+    shim.load = lambda f, **kw: _Unpickler(f, **kw).load()
+    ckpt = torch.load(path, map_location="cpu", pickle_module=shim, weights_only=False)
+    model = ckpt.get("ema") or ckpt["model"]
+
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        d = getattr(node, "__dict__", {})
+        for table in ("_parameters", "_buffers"):
+            for k, v in (d.get(table) or {}).items():
+                if v is not None:
+                    v = v.detach()
+                    out[prefix + k] = (v.float() if v.is_floating_point() else v).numpy()
+        for k, v in (d.get("_modules") or {}).items():
+            if v is not None:
+                walk(v, f"{prefix}{k}.")
+
+    walk(model, "")
+    return out
+
+
+def save_ultralytics_checkpoint(path: str, **entries) -> None:
+    """Writes ``entries`` (``model=``, ``ema=``, metadata) as ultralytics
+    saves a checkpoint: modules pickled whole in fp16, each of the port's
+    classes under the ``ultralytics.nn.modules`` path (torch's own keep
+    theirs).  For checks that have no published file:
+    ``load_ultralytics_state_dict`` reads the result as it reads one."""
+    import copy
+    import sys
+    import types
+
+    import torch
+
+    fake = types.ModuleType("ultralytics.nn.modules")
+    own = __name__.split(".")[0]
+
+    def relabel(obj):
+        cls = type(obj)
+        if cls.__module__.split(".")[0] != own:
+            return
+        if not hasattr(fake, cls.__name__):
+            setattr(fake, cls.__name__, type(cls.__name__, (cls,), {"__module__": fake.__name__}))
+        object.__setattr__(obj, "__class__", getattr(fake, cls.__name__))
+
+    out = {}
+    for key, value in entries.items():
+        if isinstance(value, torch.nn.Module):
+            value = copy.deepcopy(value).half().cpu()
+            for m in value.modules():
+                relabel(m)
+                for v in vars(m).values():
+                    relabel(v)
+        out[key] = value
+    mods = {"ultralytics": types.ModuleType("ultralytics"),
+            "ultralytics.nn": types.ModuleType("ultralytics.nn"), fake.__name__: fake}
+    saved = {k: sys.modules.get(k) for k in mods}
+    sys.modules.update(mods)
+    try:
+        torch.save(out, path)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
