@@ -1,9 +1,9 @@
 """Drive the PyTorch port's VGL clip, its entry points (weight loading, the
 server, the batch-inference CLI), its VGL / VL training (from a weight folder
 and a Bridge-layout dataset, and on synthetic clips), its tools (eval
-with LPIPS, the 8-bit AdamW A/B, the app) and its curation path (the
-This/That labeler and the flow-trajectory stage) once on one CUDA card, with
-its kernels.
+with LPIPS, the 8-bit AdamW A/B, the app), its curation path (the
+This/That labeler and the flow-trajectory stage) and its tracking (SAM +
+XMem, FlowFormer, the XMem trainer) once on one CUDA card, with its kernels.
 
     python3 chip_smoke.py
 
@@ -106,8 +106,34 @@ Phases (any failure raises and exits nonzero):
                  under torch.profiler (device ms, busy share, largest
                  kernels) and the peak memory
 
+ 11. tracking    (after phase 10, on its trees and its SAM) XMem-s012 (ResNet50
+                 key encoder, ResNet18 value encoder, DEFAULT_CONFIG) and
+                 FlowFormer sintel() (12 decoder iterations), seeded random,
+                 written as a .pth and a flowformer_params_save .npz and
+                 loaded through XMemPropagator and NativeFlowFormerFlow (fp32,
+                 TF32 off); track_by_keypoint (a click, SAM, XMem, mask_N.png)
+                 over a curated 14-frame instance; TrackingAnything.generator
+                 over the 32-frame raw instance (every frame a memory frame,
+                 long-term memory capped at 400: 5 consolidations, 2
+                 evictions); one FlowFormer pair, then trajectory.main
+                 --native-flowformer --sam over the curated instances; 3
+                 xmem_trainer steps at batch 4 x 8 frames of 384x384, 2
+                 objects; the painters on one tracked frame.  Checks: files,
+                 shapes, messages; the card against the port on the CPU
+                 within TRACKING_BOUND (XMem's key, selection and frame-1
+                 probabilities, FlowFormer's flow, the first train step's
+                 losses at batch 1 x 4 frames: 1e-4 relative; its AdamW
+                 update to the formula within 1e-3 of lr, nonzero over the
+                 parameters and the BN statistics; the 14 tracked masks and
+                 the 32 generator masks by IoU 0.99, the generator's
+                 consolidations and evictions equal) and, with TF32 on, the
+                 XMem and FlowFormer comparisons beyond those bounds; no
+                 K1-K4 launch.  Prints load, step and pair times (CUDA events), one
+                 XMem step and one FlowFormer pair under torch.profiler, the
+                 peak memory
+
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the paths of phases 5-10, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-11, each counted from zero), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -1886,10 +1912,11 @@ def read_mask(path):
     return video_io.read_png(path)[..., 0] > 127
 
 
-def phase_curation(smi):
+def phase_curation(smi, root):
     """Phase 10: the This/That labeler and the flow-trajectory stage on the
-    card at full width, against the port on the CPU.  Returns (report,
-    launch counts of the phase)."""
+    card at full width, against the port on the CPU, in ``root``.  Returns
+    (report, launch counts of the phase, what phase 11 reuses: the trees,
+    the card's SAM and its file)."""
     from this_and_that_vdm_tpu_torch import ops
     from this_and_that_vdm_tpu_torch.curation import detectors, select_frames, trajectory
     from this_and_that_vdm_tpu_torch.models.raft import pad_to_multiple
@@ -1898,189 +1925,613 @@ def phase_curation(smi):
     from this_and_that_vdm_tpu_torch.utils.video_io import read_image
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_curation_")
     rep = {}
-    try:
-        raw = os.path.join(root, "raw")
-        names = write_curation_tree(raw, smi)
-        paths, rep["params"] = curation_checkpoints(root, smi)
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        det = detectors.NativeGripperDetector(paths["yolo"], device="cuda")
-        seg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cuda")
-        flow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
-                                        device="cuda")
-        sync()
-        rep["load_s"] = time.perf_counter() - t0
-        log(f"[curation] loaded YOLOv8n, SAM ViT-H, RAFT-large from their files onto the card "
-            f"in {rep['load_s']:.3f} s  [{smi}]")
+    raw = os.path.join(root, "raw")
+    names = write_curation_tree(raw, smi)
+    paths, rep["params"] = curation_checkpoints(root, smi)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    det = detectors.NativeGripperDetector(paths["yolo"], device="cuda")
+    seg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cuda")
+    flow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
+                                    device="cuda")
+    sync()
+    rep["load_s"] = time.perf_counter() - t0
+    log(f"[curation] loaded YOLOv8n, SAM ViT-H, RAFT-large from their files onto the card "
+        f"in {rep['load_s']:.3f} s  [{smi}]")
 
-        # the labeler with the detector's own weights (random: soft failures
-        # expected), then with the paint detector, which curates the
-        # instances the trajectory stage reads
-        t0 = time.perf_counter()
-        rep["select_yolo"] = select_frames.process_dataset(raw, os.path.join(root, "out_yolo"),
-                                                           det, seg)
-        sync()
-        rep["select_yolo_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        curated = os.path.join(root, "curated")
-        rep["select"] = select_frames.process_dataset(raw, curated, PaintDetector(), seg)
-        sync()
-        rep["select_s"] = time.perf_counter() - t0
-        log(f"[curation] select_frames with YOLOv8n: {rep['select_yolo']} in "
-            f"{rep['select_yolo_s']:.3f} s; with the paint detector: {rep['select']} in "
-            f"{rep['select_s']:.3f} s  [{smi}]")
-        want = {"Success!": 3, "The number of frames is too long": 1,
-                "The number of frames is too short": 1}
-        if rep["select"] != want or sum(rep["select_yolo"].values()) != len(names):
-            raise RuntimeError(f"select_frames: {rep['select']} / {rep['select_yolo']}")
-        rec = RecordingSegmenter(seg)
-        t0 = time.perf_counter()
-        rep["traj"] = trajectory.process_dataset_traj(curated, flow_fn=flow, segmenter=rec)
-        sync()
-        rep["traj_s"] = time.perf_counter() - t0
-        log(f"[curation] trajectory (RAFT + SAM) over {sum(want.values()) - 2} curated "
-            f"instances: {rep['traj']} in {rep['traj_s']:.3f} s  [{smi}]")
-        if sum(rep["traj"].values()) != 3:
-            raise RuntimeError(f"trajectory: {rep['traj']}")
+    # the labeler with the detector's own weights (random: soft failures
+    # expected), then with the paint detector, which curates the
+    # instances the trajectory stage reads
+    t0 = time.perf_counter()
+    rep["select_yolo"] = select_frames.process_dataset(raw, os.path.join(root, "out_yolo"),
+                                                       det, seg)
+    sync()
+    rep["select_yolo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    curated = os.path.join(root, "curated")
+    rep["select"] = select_frames.process_dataset(raw, curated, PaintDetector(), seg)
+    sync()
+    rep["select_s"] = time.perf_counter() - t0
+    log(f"[curation] select_frames with YOLOv8n: {rep['select_yolo']} in "
+        f"{rep['select_yolo_s']:.3f} s; with the paint detector: {rep['select']} in "
+        f"{rep['select_s']:.3f} s  [{smi}]")
+    want = {"Success!": 3, "The number of frames is too long": 1,
+            "The number of frames is too short": 1}
+    if rep["select"] != want or sum(rep["select_yolo"].values()) != len(names):
+        raise RuntimeError(f"select_frames: {rep['select']} / {rep['select_yolo']}")
+    rec = RecordingSegmenter(seg)
+    t0 = time.perf_counter()
+    rep["traj"] = trajectory.process_dataset_traj(curated, flow_fn=flow, segmenter=rec)
+    sync()
+    rep["traj_s"] = time.perf_counter() - t0
+    log(f"[curation] trajectory (RAFT + SAM) over {sum(want.values()) - 2} curated "
+        f"instances: {rep['traj']} in {rep['traj_s']:.3f} s  [{smi}]")
+    if sum(rep["traj"].values()) != 3:
+        raise RuntimeError(f"trajectory: {rep['traj']}")
 
-        # the full-width models called directly, whatever the messages, on the
-        # frame whose mask the labeler makes (the CPU side encodes it too): a
-        # point and a box, then 20 labelled points (24 slots), one encode
-        src = os.path.join(raw, names[0])
-        rgb = read_image(os.path.join(src, "im_0.jpg"))
-        bgr = np.ascontiguousarray(rgb[..., ::-1])
-        point, box = [[232.0, 224.0]], [200.0, 200.0, 264.0, 248.0]
-        pts20 = np.random.RandomState(5).rand(20, 2) * [640, 480]
-        e0 = seg.encodes
-        m1 = seg.predict_mask(bgr, point, box)
-        m2 = seg.predict_mask_labeled(rgb, pts20, np.ones(20))
-        rep["cache_encodes"] = seg.encodes - e0
-        if m1.shape != CURATION["hw"] or m2.shape != CURATION["hw"] or rep["cache_encodes"] != 1:
-            raise RuntimeError(f"SAM direct calls: {m1.shape} {m2.shape} encodes "
-                               f"{rep['cache_encodes']}")
-        rep["launches"] = ops.launch_counts()
-        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the full-width models called directly, whatever the messages, on the
+    # frame whose mask the labeler makes (the CPU side encodes it too): a
+    # point and a box, then 20 labelled points (24 slots), one encode
+    src = os.path.join(raw, names[0])
+    rgb = read_image(os.path.join(src, "im_0.jpg"))
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    point, box = [[232.0, 224.0]], [200.0, 200.0, 264.0, 248.0]
+    pts20 = np.random.RandomState(5).rand(20, 2) * [640, 480]
+    e0 = seg.encodes
+    m1 = seg.predict_mask(bgr, point, box)
+    m2 = seg.predict_mask_labeled(rgb, pts20, np.ones(20))
+    rep["cache_encodes"] = seg.encodes - e0
+    if m1.shape != CURATION["hw"] or m2.shape != CURATION["hw"] or rep["cache_encodes"] != 1:
+        raise RuntimeError(f"SAM direct calls: {m1.shape} {m2.shape} encodes "
+                           f"{rep['cache_encodes']}")
+    rep["launches"] = ops.launch_counts()
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
 
-        # times on the card (CUDA events)
-        dev = seg.device
-        frames = [read_image(os.path.join(src, f"im_{i}.jpg")) for i in (0, 1)]
-        with torch.no_grad():
-            x = torch.from_numpy(preprocess_np(rgb, seg.cfg.img_size)[0]).to(dev)
-            emb = seg.model.encode_image(x)
-            pts = np.zeros((1, 24, 2), np.float32)
-            pts[0, :20] = transform_coords_np(pts20, CURATION["hw"], seg.cfg.img_size)
-            lbl = np.full((1, 24), -1, np.int64)
-            lbl[0, :20] = 1
-            pts, lbl = torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)
-            xy = torch.from_numpy(np.ascontiguousarray(
-                letterbox_np(bgr, det.imgsz)[0][None, ..., ::-1], np.float32) / 255.0).to(dev)
-            f1, f2 = (torch.from_numpy(pad_to_multiple(f)[0][None].astype(np.float32)).to(dev)
-                      for f in frames)
-            rep["ms"] = dict(
-                sam_encode=cuda_ms(lambda: seg.model.encode_image(x), iters=3),
-                sam_predict_24_slots=cuda_ms(lambda: seg.model.predict(emb, pts, lbl)),
-                yolo_frame=cuda_ms(lambda: det.model(xy)),
-                raft_pair=cuda_ms(lambda: flow.model(f1, f2, iters=CURATION["raft_iters"]),
-                                  iters=3))
-            # where the time goes: one RAFT pair and one SAM encode
-            rep["profile"] = {k: profile_step(fn) for k, fn in (
-                ("raft_pair", lambda: flow.model(f1, f2, iters=CURATION["raft_iters"])),
-                ("sam_encode", lambda: seg.model.encode_image(x)))}
-        log(f"[curation] card ms: {rep['ms']}; cache: {rep['cache_encodes']} encode for two "
-            f"prompts on one frame; peak memory {rep['peak_bytes'] / 2**30:.2f} GiB; K1-K4 "
-            f"launches {rep['launches']}  [{smi}]")
-        for k, (dt, busy, span, wall) in rep["profile"].items():
-            log(f"[curation] profile {k}: device {dt['total_ms']:.3f} ms in "
-                f"{dt['activities']} activities, busy {busy:.3f} of a {span:.3f} ms span, "
-                f"wall {wall:.3f} ms; largest {dt['top_ms'][:4]}  [{smi}]")
+    # times on the card (CUDA events)
+    dev = seg.device
+    frames = [read_image(os.path.join(src, f"im_{i}.jpg")) for i in (0, 1)]
+    with torch.no_grad():
+        x = torch.from_numpy(preprocess_np(rgb, seg.cfg.img_size)[0]).to(dev)
+        emb = seg.model.encode_image(x)
+        pts = np.zeros((1, 24, 2), np.float32)
+        pts[0, :20] = transform_coords_np(pts20, CURATION["hw"], seg.cfg.img_size)
+        lbl = np.full((1, 24), -1, np.int64)
+        lbl[0, :20] = 1
+        pts, lbl = torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)
+        xy = torch.from_numpy(np.ascontiguousarray(
+            letterbox_np(bgr, det.imgsz)[0][None, ..., ::-1], np.float32) / 255.0).to(dev)
+        f1, f2 = (torch.from_numpy(pad_to_multiple(f)[0][None].astype(np.float32)).to(dev)
+                  for f in frames)
+        rep["ms"] = dict(
+            sam_encode=cuda_ms(lambda: seg.model.encode_image(x), iters=3),
+            sam_predict_24_slots=cuda_ms(lambda: seg.model.predict(emb, pts, lbl)),
+            yolo_frame=cuda_ms(lambda: det.model(xy)),
+            raft_pair=cuda_ms(lambda: flow.model(f1, f2, iters=CURATION["raft_iters"]),
+                              iters=3))
+        # where the time goes: one RAFT pair and one SAM encode
+        rep["profile"] = {k: profile_step(fn) for k, fn in (
+            ("raft_pair", lambda: flow.model(f1, f2, iters=CURATION["raft_iters"])),
+            ("sam_encode", lambda: seg.model.encode_image(x)))}
+    log(f"[curation] card ms: {rep['ms']}; cache: {rep['cache_encodes']} encode for two "
+        f"prompts on one frame; peak memory {rep['peak_bytes'] / 2**30:.2f} GiB; K1-K4 "
+        f"launches {rep['launches']}  [{smi}]")
+    for k, (dt, busy, span, wall) in rep["profile"].items():
+        log(f"[curation] profile {k}: device {dt['total_ms']:.3f} ms in "
+            f"{dt['activities']} activities, busy {busy:.3f} of a {span:.3f} ms span, "
+            f"wall {wall:.3f} ms; largest {dt['top_ms'][:4]}  [{smi}]")
 
-        # the card against the port on the CPU: one input each, the direct
-        # SAM calls, then the files and messages of one instance of each stage
-        t0 = time.perf_counter()
-        cdet = detectors.NativeGripperDetector(paths["yolo"], device="cpu")
-        cseg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cpu")
-        cflow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
-                                         device="cpu")
-        err, err_tf32 = {}, {}
-        want_yolo = torch.from_numpy(cdet.predict(bgr)[0])
-        err["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
-        inst = names[0]
-        out_cpu = os.path.join(root, "cpu", inst)
-        msg_yolo = (select_frames.process_instance(src, os.path.join(root, "yolo_card"), det)[1],
-                    select_frames.process_instance(src, os.path.join(root, "yolo_cpu"), cdet)[1])
-        ok, msg = select_frames.process_instance(src, out_cpu, PaintDetector(), cseg)
-        seg.predict_mask(bgr, [[0.0, 0.0]])  # the card's embedding of the same frame
-        want_emb = cseg._cache[0]
-        err["sam"] = rel_err(seg._cache[0].cpu(), want_emb)[1]
-        e0 = cseg.encodes
-        err["iou_point_box"] = iou(m1, cseg.predict_mask(bgr, point, box))
-        err["iou_20_points"] = iou(m2, cseg.predict_mask_labeled(rgb, pts20, np.ones(20)))
-        rep["direct_mask_area"] = [float(m1.mean()), float(m2.mean())]
-        if cseg.encodes != e0:
-            raise RuntimeError("the CPU SAM encoded the labeler's frame twice")
-        card_dir = os.path.join(curated, inst)
-        for name in sorted(os.listdir(out_cpu)):
-            if name.startswith("im_") or name in ("data.txt", "lang.txt"):
-                with open(os.path.join(out_cpu, name), "rb") as a, \
-                        open(os.path.join(card_dir, name), "rb") as b:
-                    if a.read() != b.read():
-                        raise RuntimeError(f"curation: {inst}/{name} differs from the CPU's")
-        err["mask_iou"] = iou(read_mask(os.path.join(out_cpu, "mask_0.png")),
-                              read_mask(os.path.join(card_dir, "mask_0.png")))
-        want_flow = torch.from_numpy(cflow(*frames))
-        err["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
-        # negative control: the same three comparisons with TF32 on the card,
-        # and YOLO's in bf16
-        with tf32_on(), torch.no_grad():
-            err_tf32["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
-            err_tf32["sam"] = rel_err(seg.model.encode_image(x).cpu(), want_emb)[1]
-            err_tf32["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
-        with torch.autocast("cuda", torch.bfloat16):
-            err_tf32["yolo_bf16"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
-        # the trajectory of an instance whose card run wrote traj_data.txt,
-        # on the CPU from a copy of its curated folder
-        traj_inst = next((n for n in names[:3]
-                          if os.path.exists(os.path.join(curated, n, "traj_data.txt"))), None)
-        if traj_inst is None:
-            raise RuntimeError(f"trajectory: no instance wrote traj_data.txt: {rep['traj']}")
-        traj_cpu = os.path.join(root, "traj_cpu")
-        shutil.copytree(os.path.join(curated, traj_inst), traj_cpu,
-                        ignore=shutil.ignore_patterns("traj_data.txt"))
-        ok_t, msg_t = trajectory.generate_instance_traj(traj_cpu, flow_fn=cflow,
-                                                        segmenter=rec.replay(),
-                                                        rng=np.random.RandomState(0))
-        rep["cpu_s"] = time.perf_counter() - t0
-        pts_card = np.loadtxt(os.path.join(curated, traj_inst, "traj_data.txt"), ndmin=2)
-        pts_cpu = np.loadtxt(os.path.join(traj_cpu, "traj_data.txt"), ndmin=2) if ok_t else None
-        err["traj_px"] = (float(np.abs(pts_card - pts_cpu).max())
-                          if pts_cpu is not None and pts_card.shape == pts_cpu.shape else None)
-        rep["against_cpu"] = dict(err=err, err_tf32=err_tf32,
-                                  messages=dict(yolo=msg_yolo, select=msg, traj_instance=traj_inst,
-                                                traj_points=len(pts_card), traj_cpu=msg_t))
-        log(f"[curation] card against the CPU (bounds {CURATION_BOUND}): {err}; with TF32 on "
-            f"and YOLO in bf16 (SAM, RAFT and yolo_bf16 must exceed the bounds) {err_tf32}; "
-            f"direct mask areas "
-            f"{rep['direct_mask_area']}; messages {rep['against_cpu']['messages']}; CPU side "
-            f"{rep['cpu_s']:.3f} s  [{smi}]")
-        b = CURATION_BOUND
-        if (msg_yolo[0] != msg_yolo[1] or not ok or not ok_t
-                or any(err[k] > b[k] for k in ("yolo", "sam", "raft"))
-                or min(err["mask_iou"], err["iou_point_box"], err["iou_20_points"]) < b["iou"]
-                or err["traj_px"] is None or err["traj_px"] > b["px"]):
-            raise RuntimeError(f"curation: the card and the CPU disagree: {rep['against_cpu']}")
-        if min(err_tf32["sam"] / b["sam"], err_tf32["raft"] / b["raft"],
-               err_tf32["yolo_bf16"] / b["yolo"]) <= 1:
-            raise RuntimeError(f"curation: a lower precision on the card stays within the fp32 "
-                               f"bounds, so they cannot see a precision slip: {err_tf32}")
-        if any(rep["launches"].values()):
-            raise RuntimeError(f"curation launched K1-K4: {rep['launches']}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # the card against the port on the CPU: one input each, the direct
+    # SAM calls, then the files and messages of one instance of each stage
+    t0 = time.perf_counter()
+    cdet = detectors.NativeGripperDetector(paths["yolo"], device="cpu")
+    cseg = detectors.NativeSAMSegmenter(paths["sam"], "vit_h", device="cpu")
+    cflow = detectors.NativeRAFTFlow(paths["raft"], iters=CURATION["raft_iters"],
+                                     device="cpu")
+    err, err_tf32 = {}, {}
+    want_yolo = torch.from_numpy(cdet.predict(bgr)[0])
+    err["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+    inst = names[0]
+    out_cpu = os.path.join(root, "cpu", inst)
+    msg_yolo = (select_frames.process_instance(src, os.path.join(root, "yolo_card"), det)[1],
+                select_frames.process_instance(src, os.path.join(root, "yolo_cpu"), cdet)[1])
+    ok, msg = select_frames.process_instance(src, out_cpu, PaintDetector(), cseg)
+    seg.predict_mask(bgr, [[0.0, 0.0]])  # the card's embedding of the same frame
+    want_emb = cseg._cache[0]
+    err["sam"] = rel_err(seg._cache[0].cpu(), want_emb)[1]
+    e0 = cseg.encodes
+    err["iou_point_box"] = iou(m1, cseg.predict_mask(bgr, point, box))
+    err["iou_20_points"] = iou(m2, cseg.predict_mask_labeled(rgb, pts20, np.ones(20)))
+    rep["direct_mask_area"] = [float(m1.mean()), float(m2.mean())]
+    if cseg.encodes != e0:
+        raise RuntimeError("the CPU SAM encoded the labeler's frame twice")
+    card_dir = os.path.join(curated, inst)
+    for name in sorted(os.listdir(out_cpu)):
+        if name.startswith("im_") or name in ("data.txt", "lang.txt"):
+            with open(os.path.join(out_cpu, name), "rb") as a, \
+                    open(os.path.join(card_dir, name), "rb") as b:
+                if a.read() != b.read():
+                    raise RuntimeError(f"curation: {inst}/{name} differs from the CPU's")
+    err["mask_iou"] = iou(read_mask(os.path.join(out_cpu, "mask_0.png")),
+                          read_mask(os.path.join(card_dir, "mask_0.png")))
+    want_flow = torch.from_numpy(cflow(*frames))
+    err["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
+    # negative control: the same three comparisons with TF32 on the card,
+    # and YOLO's in bf16
+    with tf32_on(), torch.no_grad():
+        err_tf32["yolo"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+        err_tf32["sam"] = rel_err(seg.model.encode_image(x).cpu(), want_emb)[1]
+        err_tf32["raft"] = rel_err(torch.from_numpy(flow(*frames)), want_flow)[1]
+    with torch.autocast("cuda", torch.bfloat16):
+        err_tf32["yolo_bf16"] = yolo_err(torch.from_numpy(det.predict(bgr)[0]), want_yolo)
+    # the trajectory of an instance whose card run wrote traj_data.txt,
+    # on the CPU from a copy of its curated folder
+    traj_inst = next((n for n in names[:3]
+                      if os.path.exists(os.path.join(curated, n, "traj_data.txt"))), None)
+    if traj_inst is None:
+        raise RuntimeError(f"trajectory: no instance wrote traj_data.txt: {rep['traj']}")
+    traj_cpu = os.path.join(root, "traj_cpu")
+    shutil.copytree(os.path.join(curated, traj_inst), traj_cpu,
+                    ignore=shutil.ignore_patterns("traj_data.txt"))
+    ok_t, msg_t = trajectory.generate_instance_traj(traj_cpu, flow_fn=cflow,
+                                                    segmenter=rec.replay(),
+                                                    rng=np.random.RandomState(0))
+    rep["cpu_s"] = time.perf_counter() - t0
+    pts_card = np.loadtxt(os.path.join(curated, traj_inst, "traj_data.txt"), ndmin=2)
+    pts_cpu = np.loadtxt(os.path.join(traj_cpu, "traj_data.txt"), ndmin=2) if ok_t else None
+    err["traj_px"] = (float(np.abs(pts_card - pts_cpu).max())
+                      if pts_cpu is not None and pts_card.shape == pts_cpu.shape else None)
+    rep["against_cpu"] = dict(err=err, err_tf32=err_tf32,
+                              messages=dict(yolo=msg_yolo, select=msg, traj_instance=traj_inst,
+                                            traj_points=len(pts_card), traj_cpu=msg_t))
+    log(f"[curation] card against the CPU (bounds {CURATION_BOUND}): {err}; with TF32 on "
+        f"and YOLO in bf16 (SAM, RAFT and yolo_bf16 must exceed the bounds) {err_tf32}; "
+        f"direct mask areas "
+        f"{rep['direct_mask_area']}; messages {rep['against_cpu']['messages']}; CPU side "
+        f"{rep['cpu_s']:.3f} s  [{smi}]")
+    b = CURATION_BOUND
+    if (msg_yolo[0] != msg_yolo[1] or not ok or not ok_t
+            or any(err[k] > b[k] for k in ("yolo", "sam", "raft"))
+            or min(err["mask_iou"], err["iou_point_box"], err["iou_20_points"]) < b["iou"]
+            or err["traj_px"] is None or err["traj_px"] > b["px"]):
+        raise RuntimeError(f"curation: the card and the CPU disagree: {rep['against_cpu']}")
+    if min(err_tf32["sam"] / b["sam"], err_tf32["raft"] / b["raft"],
+           err_tf32["yolo_bf16"] / b["yolo"]) <= 1:
+        raise RuntimeError(f"curation: a lower precision on the card stays within the fp32 "
+                           f"bounds, so they cannot see a precision slip: {err_tf32}")
+    if any(rep["launches"].values()):
+        raise RuntimeError(f"curation launched K1-K4: {rep['launches']}")
     rep["wall_s"] = time.perf_counter() - t_phase
     log(f"[curation] phase wall {rep['wall_s']:.3f} s  [{smi}]")
+    return rep, rep["launches"], dict(raw=raw, curated=curated, names=names, seg=seg,
+                                      sam=paths["sam"], sam_type="vit_h")
+
+
+# ----------------------------------------------------------------- phase 11
+#
+# Tracking, FlowFormer and the XMem trainer at full width: XMem-s012 (ResNet50
+# key encoder, ResNet18 value encoder) with DEFAULT_CONFIG as written, and
+# FlowFormer sintel() with its 12 decoder iterations, both seeded random and
+# written in their own file formats.  The 32-frame generator run makes every
+# frame a memory frame and caps long-term memory at 400 elements: with
+# mem_every 5 a 32-frame clip writes 7 memory frames, fewer than
+# max_mid_term_frames (10), so nothing would consolidate; this way 32 frames
+# consolidate 5 times and evict twice (1,200 tokens a frame at 480x640).
+TRACKING = dict(seed=91, clip_frames=32, label=3, click=(232, 224),
+                generator_config=dict(mem_every=1, max_long_term_elements=400),
+                train=dict(batch=4, frames=8, hw=(384, 384), objects=2, steps=3),
+                check=dict(batch=1, frames=4))
+# Bounds of phase 11: the card against the port on the CPU (same weights and
+# input, fp32 on both, TF32 off on the card); errors are the max abs error
+# over the max abs CPU value.  Each sits between the fp32 reading and the
+# reading with TF32 on, which the phase measures every run and requires to
+# exceed it (the readings are in PERF.md).
+# - XMem's key and selection 1e-4: ResNet50 through layer3 and a 3x3 conv.
+# - XMem's frame-1 probabilities 1e-4: both encoders, the memory readout and
+#   the decoder.
+# - FlowFormer's flow 1e-4: 12 recurrent iterations feed each estimate back
+#   into the cost lookup, as RAFT's 20 do in phase 10.
+# - the first train step's losses and gradient norm 1e-4 relative: 4 frames,
+#   batch 1, at draws that are fixed (3 reference frames, deep update 1).
+# - that step's AdamW update on each side 1e-3 of the learning rate from the
+#   formula on the side's own gradient, over the parameters and the batch
+#   norms' statistics (fp32 rounds a leaf of magnitude up to 2 to 1.2e-7,
+#   1.2e-4 of lr 1e-3; an update left undone misses by 1); the change over
+#   each must be nonzero.  The two sides' updates are not compared with each
+#   other: for |g| near eps, g / (|g| + eps) turns last-bit gradient
+#   differences into differences of order lr.
+# - the masks of the 14-frame clip and of the 32-frame generator run (which
+#   consolidates and evicts) IoU >= 0.99 a frame: a mask thresholds
+#   probabilities at 0.5, and usage accumulates frame by frame.
+TRACKING_BOUND = dict(key=1e-4, selection=1e-4, prob=1e-4, flow=1e-4, loss=1e-4, update=1e-3,
+                      iou=0.99)
+
+
+def xmem_checkpoint(path, seed):
+    """Seeded random XMem-s012 weights written as a ``.pth`` state dict
+    under the published names: weights at 1/sqrt(fan-in), batch norms with
+    nontrivial statistics (the default init's identity norms and shrinking
+    activations would track nothing)."""
+    from this_and_that_vdm_tpu_torch.models.xmem import XMem
+
+    with torch.device("meta"):
+        names = XMem().state_dict()
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in names.items():
+        shape = tuple(v.shape)
+        if not v.is_floating_point():
+            sd[k] = torch.zeros(shape, dtype=torch.long)
+        elif k.endswith("running_var"):
+            sd[k] = torch.rand(shape, generator=g) + 0.5
+        elif k.endswith("running_mean"):
+            sd[k] = torch.randn(shape, generator=g) * 0.3
+        elif len(shape) == 1 and k.endswith("weight"):
+            sd[k] = torch.rand(shape, generator=g) + 0.5
+        elif len(shape) <= 1:
+            sd[k] = torch.randn(shape, generator=g) * 0.1
+        else:
+            sd[k] = torch.randn(shape, generator=g) / float(np.prod(shape[1:])) ** 0.5
+    torch.save(sd, path)
+    return sum(t.numel() for t in sd.values() if t.is_floating_point())
+
+
+def flowformer_archive(path, seed):
+    """A seeded random FlowFormer sintel() in the ``.npz`` format of
+    ``flowformer_params_save`` (GMA's gamma set to 0.5, so the global motion
+    term counts)."""
+    from this_and_that_vdm_tpu_torch.models import flowformer
+
+    torch.manual_seed(seed)
+    model = flowformer.FlowFormer(flowformer.FlowFormerConfig.sintel())
+    with torch.no_grad():
+        model.update_block.gma.gamma.fill_(0.5)
+    flowformer.save_flowformer(path, model)
+    return sum(p.numel() for p in model.parameters())
+
+
+def train_batch(b, t, hw, n, seed, device):
+    """A synthetic XMem training batch: ImageNet-normalised noise frames,
+    each object a moving rectangle, cls_gt their index map."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = hw
+    rgb = torch.randn(b, t, h, w, 3, generator=g) * 0.8
+    cls_gt = torch.zeros(b, t, h, w, dtype=torch.long)
+    for bi in range(b):
+        for o in range(n):
+            y = int(torch.randint(0, h // 2, (), generator=g))
+            x = int(torch.randint(0, w // 2, (), generator=g))
+            for ti in range(t):
+                y1, x1 = y + 4 * ti, x + 4 * ti
+                cls_gt[bi, ti, y1:y1 + h // 3, x1:x1 + w // 3] = o + 1
+    gt0 = torch.stack([(cls_gt[:, 0] == o + 1).float() for o in range(n)], 1)
+    return {k: v.to(device) for k, v in dict(
+        rgb=rgb, first_frame_gt=gt0, cls_gt=cls_gt, selector=torch.ones(b, n),
+        num_objects=torch.full((b,), n, dtype=torch.long)).items()}
+
+
+class FirstMask:
+    """The card's segmenter, keeping the mask it makes (the CPU side reuses
+    it, as phase 10 replays SAM's masks)."""
+
+    def __init__(self, seg):
+        self.seg, self.mask = seg, None
+
+    def predict_mask(self, image_bgr, points_xy, box_xyxy=None):
+        self.mask = self.seg.predict_mask(image_bgr, points_xy, box_xyxy)
+        return self.mask
+
+
+def counting(obj, name, counter, key, shrinks=None):
+    """Wrap ``obj.name`` to count its calls in ``counter[key]`` (with
+    ``shrinks``, only the calls after which ``shrinks()`` got smaller)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        before = shrinks() if shrinks else None
+        out = fn(*args, **kwargs)
+        counter[key] += 1 if shrinks is None or shrinks() < before else 0
+        return out
+    setattr(obj, name, wrapped)
+
+
+def xmem_readings(model, frames, first_mask):
+    """Key, selection (frame 0) and the frame-1 probabilities of one model,
+    on the host."""
+    from this_and_that_vdm_tpu_torch.curation import xmem_tracker as xt
+    from this_and_that_vdm_tpu_torch.models.xmem import normalize_imagenet
+
+    dev = next(model.parameters()).device
+    x = normalize_imagenet(torch.from_numpy(frames[0].astype(np.float32) / 255.0))
+    x = torch.from_numpy(xt.pad_divide_by(x.numpy(), 16)[0]).permute(2, 0, 1)[None].to(dev)
+    core = xt.XMemInferenceCore(model, xt.DEFAULT_CONFIG)
+    core.set_all_labels([1])
+    with torch.no_grad():
+        key, _, selection = model.encode_key(x)[:3]
+        core.step(frames[0].astype(np.float32) / 255.0, first_mask[None].astype(np.float32))
+        prob = core.step(frames[1].astype(np.float32) / 255.0)
+    return dict(key=key.cpu(), selection=selection.cpu(), prob=prob.cpu())
+
+
+def step_readings(model, batch, cfg):
+    """One train step's losses and gradient norm, and its AdamW update held
+    to the formula on the step's own gradient, ``p - lr (g / (|g| + eps) +
+    wd p)`` from zero moments: ``update_err`` is the largest miss over lr,
+    over every trained leaf (the frozen batch norms' statistics among them,
+    which the step trains as JAX's does).  Also the norms of the change over
+    the parameters and over the statistics, and how many gradient elements
+    lie under 1e-6, where ``g / (|g| + eps)`` is not yet ``sign(g)``."""
+    from this_and_that_vdm_tpu_torch.training import xmem_trainer as xt
+
+    opt = xt.make_optimizer(model, cfg)
+    params = set(map(id, model.parameters()))
+    leaves = [t for group in opt.param_groups for t in group["params"]]
+    before = [t.detach().double() for t in leaves]
+    losses = xt.train_step(model, opt, batch, 0, cfg, torch.Generator().manual_seed(0))
+    out = {k: float(v) for k, v in losses.items()}
+    lr, wd = cfg.learning_rate, cfg.weight_decay
+    out.update(update_err=0.0, small_grads=0)
+    sq = {True: 0.0, False: 0.0}
+    for t, p0 in zip(leaves, before):
+        g, p1 = t.grad.double(), t.detach().double()
+        expect = p0 - lr * (g / (g.abs() + 1e-8) + wd * p0)
+        out["update_err"] = max(out["update_err"], float((p1 - expect).abs().max()) / lr)
+        out["small_grads"] += int((g.abs() < 1e-6).sum())
+        sq[id(t) in params] += float((p1 - p0).square().sum())
+    out.update(update_norm=sq[True] ** 0.5, bn_update_norm=sq[False] ** 0.5)
+    return out
+
+
+def phase_tracking(smi, root, ctx):
+    """Phase 11: click-to-mask tracking (SAM + XMem), FlowFormer in the
+    trajectory stage, the XMem trainer and the painters on the card at full
+    width, against the port on the CPU.  Reuses phase 10's trees and SAM.
+    Returns (report, launch counts of the phase)."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.curation import (detectors, painters, tracking,
+                                                      trajectory, xmem_tracker)
+    from this_and_that_vdm_tpu_torch.models.flowformer import flowformer_forward
+    from this_and_that_vdm_tpu_torch.models.raft import pad_to_multiple
+    from this_and_that_vdm_tpu_torch.training import xmem_trainer
+    from this_and_that_vdm_tpu_torch.utils.video_io import read_image
+
+    t_phase = time.perf_counter()
+    rep = {}
+    t0 = time.perf_counter()
+    paths = {"xmem": os.path.join(root, "XMem-s012.pth"),
+             "flowformer": os.path.join(root, "flowformer_sintel.npz")}
+    rep["params"] = dict(xmem=xmem_checkpoint(paths["xmem"], TRACKING["seed"]),
+                         flowformer=flowformer_archive(paths["flowformer"], TRACKING["seed"]))
+    log(f"[tracking] wrote XMem-s012 (.pth) and FlowFormer sintel (.npz) {rep['params']} "
+        f"params in {time.perf_counter() - t0:.3f} s  [{smi}]")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prop = tracking.XMemPropagator(paths["xmem"], device="cuda")
+    sync()
+    rep["load_xmem_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flow = detectors.NativeFlowFormerFlow(paths["flowformer"], device="cuda")
+    sync()
+    rep["load_flowformer_s"] = time.perf_counter() - t0
+    if flow.iters != 12:
+        raise RuntimeError(f"FlowFormer sintel runs {flow.iters} iterations, not 12")
+    log(f"[tracking] loaded XMem-s012 in {rep['load_xmem_s']:.3f} s and FlowFormer sintel in "
+        f"{rep['load_flowformer_s']:.3f} s onto the card  [{smi}]")
+
+    # 1. click -> SAM -> XMem -> mask_N.png on a curated 14-frame instance
+    inst = os.path.join(ctx["curated"], sorted(os.listdir(ctx["curated"]))[0])
+    n_frames = len([f for f in os.listdir(inst) if f.startswith("im_")])
+    first = FirstMask(ctx["seg"])
+    out = os.path.join(root, "tracked")
+    t0 = time.perf_counter()
+    masks = tracking.track_by_keypoint(inst, first, propagator=prop, store_dir=out,
+                                       device="cuda")
+    sync()
+    rep["track_s"] = time.perf_counter() - t0
+    files = sorted(os.listdir(out))
+    written = [read_mask(os.path.join(out, f"mask_{i}.png")) for i in range(len(masks))]
+    if (len(masks) != n_frames or len(files) != n_frames
+            or any(w.shape != CURATION["hw"] or not np.array_equal(w, m)
+                   for w, m in zip(written, masks))):
+        raise RuntimeError(f"track_by_keypoint: {len(masks)} masks, files {files}")
+    rep["mask_area"] = [float(m.mean()) for m in masks]
+    log(f"[tracking] track_by_keypoint (SAM + XMem, DEFAULT_CONFIG) over {n_frames} frames at "
+        f"{CURATION['hw'][0]}x{CURATION['hw'][1]} in {rep['track_s']:.3f} s; mask areas "
+        f"{[round(a, 4) for a in rep['mask_area']]}  [{smi}]")
+
+    # 2. TrackingAnything over the 32-frame raw instance: consolidation, eviction
+    src = os.path.join(ctx["raw"], ctx["names"][2])
+    clip = [read_image(os.path.join(src, f"im_{i}.jpg")) for i in range(TRACKING["clip_frames"])]
+    cfg = dict(xmem_tracker.DEFAULT_CONFIG, **TRACKING["generator_config"])
+    ta = tracking.TrackingAnything(ctx["seg"], prop.model, cfg, device="cuda")
+    click_mask, _, click_painted = ta.first_frame_click(clip[0], np.array([TRACKING["click"]]))
+    (x0, y0), (bw, bh) = CURATION["start"], CURATION["box"]
+    template = np.zeros(CURATION["hw"], np.uint8)
+    template[y0:y0 + bh, x0:x0 + bw] = TRACKING["label"]  # the gripper's paint at frame 0
+    mem = ta.tracker.core.memory
+    events = dict(consolidations=0, evictions=0)
+    counting(mem, "compress_features", events, "consolidations")
+    counting(mem.long_mem, "remove_obsolete_features", events, "evictions",
+             lambda: mem.long_mem.size)
+    t0 = time.perf_counter()
+    gen_masks, _, gen_painted = ta.generator(clip, template)
+    sync()
+    rep["generator_s"] = time.perf_counter() - t0
+    rep["generator"] = dict(events, long_term=mem.long_mem.size, working=mem.work_mem.size,
+                            area=[float((m == TRACKING["label"]).mean()) for m in gen_masks[::8]])
+    if (len(gen_masks) != len(clip) or any(set(np.unique(m)) - {0, TRACKING["label"]}
+                                           for m in gen_masks)
+            or events["consolidations"] < 1 or events["evictions"] < 1
+            or click_mask.shape != CURATION["hw"] or click_painted.shape != clip[0].shape
+            or gen_painted[-1].shape != clip[0].shape):
+        raise RuntimeError(f"TrackingAnything: {rep['generator']}")
+    log(f"[tracking] TrackingAnything.generator over {len(clip)} frames ({cfg}) in "
+        f"{rep['generator_s']:.3f} s: {rep['generator']}  [{smi}]")
+
+    # 3. FlowFormer: one pair, then the trajectory CLI over the curated tree
+    pair = [read_image(os.path.join(inst, f"im_{i}.jpg")) for i in (0, 1)]
+    t0 = time.perf_counter()
+    flow_card = flow(*pair)
+    sync()
+    rep["flow_pair_s"] = time.perf_counter() - t0
+    traj_root = os.path.join(root, "traj_flowformer")
+    shutil.copytree(ctx["curated"], traj_root,
+                    ignore=shutil.ignore_patterns("traj_data.txt"))
+    t0 = time.perf_counter()
+    rep["traj"] = trajectory.main([traj_root, "--native-flowformer", paths["flowformer"],
+                                   "--sam", ctx["sam"], "--sam-type", ctx["sam_type"]])
+    sync()
+    rep["traj_s"] = time.perf_counter() - t0
+    n_curated = len(os.listdir(ctx["curated"]))
+    traj_files = [n for n in os.listdir(traj_root)
+                  if os.path.exists(os.path.join(traj_root, n, "traj_data.txt"))]
+    points = [np.loadtxt(os.path.join(traj_root, n, "traj_data.txt"), ndmin=2)
+              for n in traj_files]  # "frame x y" lines
+    if (sum(rep["traj"].values()) != n_curated or flow_card.shape != CURATION["hw"] + (2,)
+            or len(traj_files) != rep["traj"].get("Success!", 0)
+            or any(p.shape != (14, 3) or not np.array_equal(p[:, 0], np.arange(14))
+                   for p in points)):
+        raise RuntimeError(f"trajectory --native-flowformer: {rep['traj']}, files {traj_files}")
+    log(f"[tracking] FlowFormer pair {rep['flow_pair_s']:.3f} s; trajectory --native-flowformer "
+        f"--sam over {n_curated} curated instances: {rep['traj']} in {rep['traj_s']:.3f} s  "
+        f"[{smi}]")
+
+    # 4. the XMem trainer: 3 steps with the config's draws
+    tcfg = TRACKING["train"]
+    xcfg = xmem_trainer.XMemTrainConfig()
+    rep["peak_bytes_tracking"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b = tcfg["batch"]
+    model = tracking.load_xmem(paths["xmem"], "cuda").train()
+    opt = xmem_trainer.make_optimizer(model, xcfg)
+    gen = torch.Generator().manual_seed(TRACKING["seed"])
+    steps = []
+    for it in range(tcfg["steps"]):
+        batch = train_batch(b, tcfg["frames"], tcfg["hw"], tcfg["objects"],
+                            TRACKING["seed"] + it, "cuda")
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        losses = xmem_trainer.train_step(model, opt, batch, it, xcfg, gen)
+        marks[1].record()
+        sync()
+        steps.append(dict({k: float(v) for k, v in losses.items()},
+                          s=time.perf_counter() - t0, ms=marks[0].elapsed_time(marks[1])))
+    rep["train"] = dict(batch=b, frames=tcfg["frames"], hw=tcfg["hw"], steps=steps,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    if any(not np.isfinite(s["total_loss"]) or not s["grad_norm"] > 0 for s in steps):
+        raise RuntimeError(f"xmem_trainer: {steps}")
+    readings = [(s["total_loss"], s["grad_norm"], s["s"]) for s in steps]
+    log(f"[tracking] xmem_trainer {tcfg['steps']} steps, batch {b} x {tcfg['frames']} frames at "
+        f"{tcfg['hw'][0]}x{tcfg['hw'][1]}, {tcfg['objects']} objects: {readings} (loss, grad "
+        f"norm, s); peak {rep['train']['peak_bytes'] / 2**30:.2f} GiB  [{smi}]")
+
+    # 5. the painters on one tracked frame
+    frame, m = pair[1], masks[1]
+    overlay = painters.mask_painter(frame, m)
+    band = painters.mask_contour(m)
+    dots = painters.point_painter(overlay, [TRACKING["click"]], point_radius=8)
+    colour = painters.flow_to_image(flow_card)
+    if (overlay.shape != frame.shape or dots.shape != frame.shape
+            or colour.shape != frame.shape or colour.dtype != np.uint8
+            or band.shape != m.shape or (m.any() and not band.any())
+            or (m.any() and np.array_equal(overlay, frame))):
+        raise RuntimeError("painters: wrong overlay")
+    rep["painters"] = dict(mask_px=int(m.sum()), band_px=int(band.sum()),
+                           changed_px=int((overlay != frame).any(-1).sum()))
+    rep["launches"] = ops.launch_counts()
+
+    # times on the card (CUDA events) and where the time goes
+    core = xmem_tracker.XMemInferenceCore(prop.model, xmem_tracker.DEFAULT_CONFIG)
+    core.set_all_labels([1])
+    img01 = [f.astype(np.float32) / 255.0 for f in pair]
+    core.step(img01[0], masks[0][None].astype(np.float32))
+    x1, x2 = (torch.from_numpy(pad_to_multiple(f)[0][None].astype(np.float32)).cuda()
+              for f in pair)
+    with torch.no_grad():
+        rep["ms"] = dict(xmem_step=cuda_ms(lambda: core.step(img01[1])),
+                         flowformer_pair=cuda_ms(lambda: flowformer_forward(flow.model, x1, x2),
+                                                 iters=3),
+                         train_step=float(np.mean([s["ms"] for s in steps[1:]])))
+        rep["profile"] = {k: profile_step(fn) for k, fn in (
+            ("xmem_step", lambda: core.step(img01[1])),
+            ("flowformer_pair", lambda: flowformer_forward(flow.model, x1, x2)))}
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[tracking] card ms: {rep['ms']} (train_step: steps 2-3); peak memory "
+        f"{rep['peak_bytes_tracking'] / 2**30:.2f} GiB tracking, "
+        f"{rep['train']['peak_bytes'] / 2**30:.2f} GiB training; K1-K4 launches "
+        f"{rep['launches']}  [{smi}]")
+    for k, (dt, busy, span, wall) in rep["profile"].items():
+        log(f"[tracking] profile {k}: device {dt['total_ms']:.3f} ms in {dt['activities']} "
+            f"activities, busy {busy:.3f} of a {span:.3f} ms span, wall {wall:.3f} ms; "
+            f"largest {dt['top_ms'][:4]}  [{smi}]")
+
+    # the card against the port on the CPU
+    t0 = time.perf_counter()
+    frames = [read_image(os.path.join(inst, f"im_{i}.jpg")) for i in range(n_frames)]
+    cpu_model = tracking.load_xmem(paths["xmem"], "cpu")
+    want = xmem_readings(cpu_model, frames, first.mask)
+    got = xmem_readings(prop.model, frames, first.mask)
+    err = {k: rel_err(got[k], want[k])[1] for k in ("key", "selection", "prob")}
+    cpu_masks = xmem_tracker.xmem_propagator(cpu_model)(frames, first.mask)
+    ious = [iou(a, b) for a, b in zip(masks, cpu_masks)]
+    err["iou_min"] = min(ious)
+    # the 32-frame generator run, consolidations and evictions included
+    cpu_ta = tracking.TrackingAnything(ctx["seg"], cpu_model, cfg, device="cpu")
+    cpu_mem = cpu_ta.tracker.core.memory
+    gen_cpu_events = dict(consolidations=0, evictions=0)
+    counting(cpu_mem, "compress_features", gen_cpu_events, "consolidations")
+    counting(cpu_mem.long_mem, "remove_obsolete_features", gen_cpu_events, "evictions",
+             lambda: cpu_mem.long_mem.size)
+    label = TRACKING["label"]
+    gen_ious = [iou(a == label, b == label)
+                for a, b in zip(gen_masks, cpu_ta.generator(clip, template)[0])]
+    err["iou_min_generator"] = min(gen_ious)
+    cflow = detectors.NativeFlowFormerFlow(paths["flowformer"], device="cpu")
+    want_flow = torch.from_numpy(cflow(*pair))
+    err["flow"] = rel_err(torch.from_numpy(flow_card), want_flow)[1]
+    ccfg = xmem_trainer.XMemTrainConfig(num_ref_frames=TRACKING["check"]["frames"] - 1,
+                                        deep_update_prob=1.0, learning_rate=1e-3)
+    cb = train_batch(TRACKING["check"]["batch"], TRACKING["check"]["frames"], tcfg["hw"],
+                     tcfg["objects"], TRACKING["seed"], "cpu")
+    want_step = step_readings(tracking.load_xmem(paths["xmem"], "cpu").train(), cb, ccfg)
+    got_step = step_readings(tracking.load_xmem(paths["xmem"], "cuda").train(),
+                             {k: v.cuda() for k, v in cb.items()}, ccfg)
+    err["loss"] = max(abs(got_step[k] - want_step[k]) / abs(want_step[k])
+                      for k in ("total_loss", "ce_loss", "dice_loss", "grad_norm"))
+    err["update"] = max(got_step["update_err"], want_step["update_err"])
+    # negative control: the same comparisons with TF32 on the card
+    err_tf32 = {}
+    with tf32_on():
+        got32 = xmem_readings(prop.model, frames, first.mask)
+        err_tf32.update({k: rel_err(got32[k], want[k])[1] for k in ("key", "selection", "prob")})
+        err_tf32["flow"] = rel_err(torch.from_numpy(flow(*pair)), want_flow)[1]
+    rep["cpu_s"] = time.perf_counter() - t0
+    rep["against_cpu"] = dict(err=err, err_tf32=err_tf32, ious=ious, generator_ious=gen_ious,
+                              generator_events_cpu=gen_cpu_events, step_card=got_step,
+                              step_cpu=want_step)
+    log(f"[tracking] card against the CPU (bounds {TRACKING_BOUND}): {err}; with TF32 on (each "
+        f"must exceed its bound) {err_tf32}; mask IoU a frame {[round(x, 5) for x in ious]}; "
+        f"generator mask IoU a frame {[round(x, 5) for x in gen_ious]}, CPU memory events "
+        f"{gen_cpu_events}; first step card {got_step} CPU {want_step}; CPU side "
+        f"{rep['cpu_s']:.3f} s  [{smi}]")
+    b = TRACKING_BOUND
+    if (any(err[k] > b[k] for k in ("key", "selection", "prob", "flow", "loss", "update"))
+            or min(err["iou_min"], err["iou_min_generator"]) < b["iou"]
+            or not min(got_step["update_norm"], got_step["bn_update_norm"]) > 0
+            or gen_cpu_events != events):
+        raise RuntimeError(f"tracking: the card and the CPU disagree: {rep['against_cpu']}")
+    if min(err_tf32[k] / b[k] for k in err_tf32) <= 1:
+        raise RuntimeError(f"tracking: TF32 on the card stays within the fp32 bounds, so they "
+                           f"cannot see a precision slip: {err_tf32}")
+    if any(rep["launches"].values()):
+        raise RuntimeError(f"tracking launched K1-K4: {rep['launches']}")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"[tracking] phase wall {rep['wall_s']:.3f} s  [{smi}]")
     return rep, rep["launches"]
 
 
@@ -2110,10 +2561,16 @@ def main():
     torch.cuda.empty_cache()
     train = [phase_train(*args, smi) for args in TRAIN_CONFIGS]
     torch.cuda.empty_cache()
-    curation, curation_counts = phase_curation(smi)
+    curation_root = tempfile.mkdtemp(prefix="chip_smoke_curation_")
+    try:
+        curation, curation_counts, ctx = phase_curation(smi, curation_root)
+        tracking, tracking_counts = phase_tracking(smi, curation_root, ctx)
+    finally:
+        ctx = None
+        shutil.rmtree(curation_root, ignore_errors=True)
     paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
                  **{f"train_{t['mode']}": t["launches"] for t in train},
-                 curation=curation_counts)
+                 curation=curation_counts, tracking=tracking_counts)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2130,7 +2587,7 @@ def main():
                        backward_rel_err=backward, denoiser_rel_l2=rel_l2,
                        denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, entry_points=entry, train=train,
-                       weights_and_data=weights_data, curation=curation,
+                       weights_and_data=weights_data, curation=curation, tracking=tracking,
                        wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -30,6 +30,8 @@ from this_and_that_vdm_tpu.weights.convert import (raft_state_dict_to_flax,
 
 from this_and_that_vdm_tpu_torch.curation import detectors, flow_eval, select_frames, trajectory
 from this_and_that_vdm_tpu_torch.models import raft, sam, yolov8
+from this_and_that_vdm_tpu_torch.models.flowformer import (FlowFormer, FlowFormerConfig,
+                                                           save_flowformer)
 from this_and_that_vdm_tpu_torch.utils.video_io import read_png, write_png
 from this_and_that_vdm_tpu_torch.weights.convert import save_ultralytics_checkpoint
 
@@ -242,7 +244,8 @@ def test_flow_eval_matches_jax():
 def test_cli_entry_points_run_on_the_cpu(tree, tmp_path):
     """select_frames.main and trajectory.main with checkpoint files (an
     ultralytics pickle, a SAM state dict, a RAFT file with the ``module.``
-    prefix) and ``--device cpu``; without it they want the card and raise."""
+    prefix, a FlowFormer ``.npz``) and ``--device cpu``; without it they want
+    the card and raise."""
     save_ultralytics_checkpoint(str(tmp_path / "y.pt"),
                                 model=yolov8.YOLOv8(yolov8.YOLOv8Config.tiny()))
     torch.save(sam.Sam(sam.SamConfig.tiny()).state_dict(), str(tmp_path / "s.pth"))
@@ -268,8 +271,10 @@ def test_cli_entry_points_run_on_the_cpu(tree, tmp_path):
             "--sam-type", "tiny", "--device", "cpu"]
     messages = trajectory.main(argv)
     assert sum(messages.values()) == 2
-    with pytest.raises(NotImplementedError, match="FlowFormer"):
-        trajectory.main([traj_root, "--native-flowformer", "x.npz", "--device", "cpu"])
+    save_flowformer(str(tmp_path / "f.npz"), FlowFormer(FlowFormerConfig.tiny()))
+    argv[1:3] = ["--native-flowformer", str(tmp_path / "f.npz")]
+    messages = trajectory.main(argv)
+    assert sum(messages.values()) == 2
 
 
 EXTERNAL = {

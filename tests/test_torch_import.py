@@ -51,7 +51,10 @@ def test_training_tools_are_among_the_modules_imported():
     for name in ("data.bridge", "curation.prepare_bridge", "training.validation",
                  "training.train_loop", "utils.lpips", "utils.profiling", "cli.adam8bit_ab",
                  "app", "models.sam", "models.yolov8", "models.raft", "curation.detectors",
-                 "curation.select_frames", "curation.trajectory", "curation.flow_eval"):
+                 "curation.select_frames", "curation.trajectory", "curation.flow_eval",
+                 "models.xmem", "models.flowformer", "curation.xmem_tracker",
+                 "curation.tracking", "curation.painters", "curation.tools",
+                 "training.xmem_trainer"):
         assert f"{pkg.__name__}.{name}" in names, name
 
 
@@ -203,6 +206,83 @@ print("ok", bad)
 def test_curation_path_works_without_optional_packages():
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _CURATION_WITHOUT_OPTIONAL], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok []", res.stdout
+
+
+# tracking, FlowFormer, the painters, the tools and the XMem trainer with
+# cv2 and PIL blocked: none of them imports either, and only check_videos
+# (which decodes videos) needs cv2, and only when it is called
+_TRACKING_WITHOUT_OPTIONAL = """
+import os, sys, tempfile
+BLOCKED = ("cv2", "PIL", "imageio", "transformers")
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from this_and_that_vdm_tpu_torch.curation import (detectors, painters, tools, tracking,
+                                                  trajectory, xmem_tracker)
+from this_and_that_vdm_tpu_torch.models import flowformer, xmem
+from this_and_that_vdm_tpu_torch.training import xmem_trainer
+from this_and_that_vdm_tpu_torch.utils import video_io
+
+d = tempfile.mkdtemp()
+frames = [np.full((32, 48, 3), 20 * i, np.uint8) for i in range(3)]
+for i, f in enumerate(frames):
+    f[8:20, 4 + 2 * i:16 + 2 * i] = 200
+mask = np.zeros((32, 48), bool)
+mask[8:20, 4:16] = True
+inst = os.path.join(d, "inst")
+os.makedirs(inst)
+for i, f in enumerate(frames):
+    video_io.write_png(os.path.join(inst, f"im_{i}.jpg"), f)
+with open(os.path.join(inst, "data.txt"), "w") as f:
+    f.write("0 10.0 12.0\\n")
+
+class Seg:
+    def predict_mask(self, image_bgr, points_xy, box_xyxy=None):
+        return mask
+
+masks = tracking.track_by_keypoint(inst, Seg(), store_dir=os.path.join(d, "m"), device="cpu")
+assert len(masks) == 3
+assert video_io.read_png(os.path.join(d, "m", "mask_2.png")).shape == (32, 48, 3)
+model = xmem.XMem().eval()
+torch.save(model.state_dict(), os.path.join(d, "x.pth"))
+got = tracking.XMemPropagator(os.path.join(d, "x.pth"), device="cpu")(frames, mask)
+assert len(got) == 3 and got[2].shape == (32, 48)
+cfg = xmem_trainer.XMemTrainConfig(num_ref_frames=1)
+batch = dict(rgb=torch.zeros(1, 2, 32, 48, 3), first_frame_gt=torch.from_numpy(mask[None, None]
+             .astype(np.float32)), cls_gt=torch.zeros(1, 2, 32, 48, dtype=torch.long),
+             selector=torch.ones(1, 1))
+losses = xmem_trainer.train_step(model.train(), xmem_trainer.make_optimizer(model, cfg), batch,
+                                 0, cfg, torch.Generator().manual_seed(0))
+assert torch.isfinite(losses["total_loss"]) and losses["grad_norm"] > 0
+painted = painters.mask_painter(frames[0], mask)
+painted = painters.point_painter(painted, [(10, 12)])
+assert painted.shape == (32, 48, 3)
+ff = flowformer.FlowFormer(flowformer.FlowFormerConfig.tiny())
+flowformer.save_flowformer(os.path.join(d, "f.npz"), ff)
+flow = detectors.NativeFlowFormerFlow(os.path.join(d, "f.npz"), device="cpu")(frames[0],
+                                                                              frames[1])
+assert flow.shape == (32, 48, 2) and painters.flow_to_image(flow).shape == (32, 48, 3)
+os.makedirs(os.path.join(d, "v", "a"))
+video_io.write_png(os.path.join(d, "v", "a", "0.png"), frames[0])
+assert tools.resize_video_seq(os.path.join(d, "v"), os.path.join(d, "r"), (16, 24)) == 1
+try:
+    tools.check_videos(d)
+    raise AssertionError("check_videos ran with no cv2")
+except RuntimeError as e:
+    assert "cv2" in str(e), e
+bad = sorted(m for m in sys.modules if m in ("jax", "this_and_that_vdm_tpu")
+             or (m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
+print("ok", bad)
+"""
+
+
+def test_tracking_flow_and_trainer_work_without_optional_packages():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _TRACKING_WITHOUT_OPTIONAL], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok []", res.stdout

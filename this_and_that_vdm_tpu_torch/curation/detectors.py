@@ -2,7 +2,7 @@
 ``curation/detectors.py``).
 
 Small protocols keep the algorithms testable with fakes.  The native
-wrappers run the port's YOLOv8, SAM and RAFT (``models/``) on the card by
+wrappers run the port's YOLOv8, SAM, RAFT and FlowFormer (``models/``) on the card by
 default, in fp32 with TF32 off (they hold to a full-fp32 reference), and
 raise rather than fall back to the CPU when no card is present; ``device=
 "cpu"`` runs them on the CPU.  The external-package wrappers (ultralytics,
@@ -300,6 +300,40 @@ class NativeRAFTFlow:
         x2 = torch.from_numpy(p2.astype(np.float32)[None]).to(self.device)
         with torch.no_grad():
             flow = self.model(x1, x2, iters=self.iters)[1]
+        return flow[0, top:top + h, left:left + w].cpu().numpy()
+
+
+class NativeFlowFormerFlow:
+    """The port's FlowFormer with the FlowFn contract: (prev_rgb, next_rgb)
+    uint8 -> ``[H, W, 2]`` float32 flow.  Loads a ``flowformer_params_save``
+    ``.npz`` (the config from the archive unless ``cfg`` is given; the JAX
+    package's archives load as they are) or takes a built
+    ``models/flowformer.FlowFormer`` as ``model``.  ``iters`` defaults to
+    the config's ``decoder_depth``; frames are replicate-padded to a
+    multiple of 8 and the flow cropped back."""
+
+    def __init__(self, checkpoint: Optional[str] = None, model=None, cfg=None, iters: int = 0,
+                 device: str = "cuda"):
+        from ..models import flowformer as ff_mod
+
+        self.device = perception_device(device)
+        if model is None:
+            model = ff_mod.load_flowformer(checkpoint, cfg)
+        self.model = model.to(self.device).eval()
+        self.cfg = self.model.cfg
+        self.iters = iters or self.cfg.decoder_depth
+
+    def __call__(self, prev_rgb: np.ndarray, next_rgb: np.ndarray) -> np.ndarray:
+        import torch
+
+        from ..models.flowformer import flowformer_forward, pad_to_multiple
+
+        p1, (top, left, h, w) = pad_to_multiple(np.asarray(prev_rgb))
+        p2, _ = pad_to_multiple(np.asarray(next_rgb))
+        x1 = torch.from_numpy(p1.astype(np.float32)[None]).to(self.device)
+        x2 = torch.from_numpy(p2.astype(np.float32)[None]).to(self.device)
+        with torch.no_grad():
+            flow = flowformer_forward(self.model, x1, x2, iters=self.iters)[1]
         return flow[0, top:top + h, left:left + w].cpu().numpy()
 
 

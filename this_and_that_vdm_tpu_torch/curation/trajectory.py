@@ -7,9 +7,11 @@ centered start point -> chained local-mean trajectory with expanding search
 magnitude -> the N(35.3, 18.5)/N(25, 10) constants in the training YAMLs).
 
 The flow backend is injectable: the port's RAFT (models/raft.py, ``--raft
-ckpt``, published raft-things/sintel checkpoints; on the card unless
-``--device cpu``), FlowFormer (vendored, as the reference expects its user
-to do), or cv2's Farneback (detectors.farneback_flow, which needs cv2).
+ckpt``, published raft-things/sintel checkpoints) or FlowFormer
+(models/flowformer.py, ``--native-flowformer archive.npz``), both on the
+card unless ``--device cpu``; a vendored FlowFormer (as the reference
+expects its user to do); or cv2's Farneback (detectors.farneback_flow,
+which needs cv2).
 Frames are read by content (``utils/video_io.read_image``), so PNG bytes
 need neither cv2 nor PIL.
 """
@@ -313,7 +315,7 @@ def dataset_motion_stats(videos: List[np.ndarray], flow_fn: FlowFn = farneback_f
 def main(argv=None):
     """Batch CLI (reference generate_traj.py:552-600):
     ``python -m this_and_that_vdm_tpu_torch.curation.trajectory IN
-    [--workers N] [--raft ckpt] [--sam ckpt] [--device cpu]``.  The models run
+    [--workers N] [--raft ckpt | --native-flowformer npz] [--sam ckpt] [--device cpu]``.  The models run
     on the card unless ``--device cpu``; without a flow checkpoint, cv2's
     Farneback flow is used."""
     import argparse
@@ -329,7 +331,8 @@ def main(argv=None):
                    help="RAFT checkpoint (e.g. raft-things.pth) for the port's flow network "
                         "(models/raft.py)")
     p.add_argument("--native-flowformer", default=None,
-                   help="native FlowFormer parameters (not ported yet: raises)")
+                   help="FlowFormer parameters as a flowformer_params_save .npz for the port's "
+                        "flow network (models/flowformer.py)")
     p.add_argument("--sam", default=None, help="segment-anything checkpoint")
     p.add_argument("--sam-type", default="vit_h")
     p.add_argument("--sam-backend", default="native", choices=("native", "torch"),
@@ -340,15 +343,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    if args.native_flowformer:
-        raise NotImplementedError(
-            "--native-flowformer: the port has no FlowFormer yet (models/flowformer.py and "
-            "NativeFlowFormerFlow come with the FlowFormer slice, ROADMAP queue 1); use --raft")
     flow_fn = farneback_flow
     if args.raft:
         from .detectors import NativeRAFTFlow
 
         flow_fn = NativeRAFTFlow(args.raft, device=args.device)
+    elif args.native_flowformer:
+        from .detectors import NativeFlowFormerFlow
+
+        flow_fn = NativeFlowFormerFlow(args.native_flowformer, device=args.device)
     elif args.flowformer:
         from .detectors import FlowFormerFlow
 

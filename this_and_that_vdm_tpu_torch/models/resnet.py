@@ -23,9 +23,10 @@ class Conv2d(nn.Conv2d):
     consumes and produces without a copy; the result is permuted back."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-                 padding: Optional[int] = None, bias: bool = True):
+                 padding: Optional[int] = None, bias: bool = True, groups: int = 1):
         pad = (kernel_size - 1) // 2 if padding is None else padding
-        super().__init__(cin, cout, kernel_size, stride=stride, padding=pad, bias=bias)
+        super().__init__(cin, cout, kernel_size, stride=stride, padding=pad, bias=bias,
+                         groups=groups)
 
     def forward(self, x):
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()

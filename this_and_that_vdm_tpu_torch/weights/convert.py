@@ -17,6 +17,7 @@ Kernel transposes by rank: dense (I, O) -> (O, I); conv (H, W, I, O) ->
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -281,6 +282,99 @@ def flax_sam_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
             leaf, t = _leaf(name, arr)
         sd[".".join(_unfold_ints(p) for p in segs) + "." + leaf] = t
     return sd
+
+
+_XMEM_DIGIT_SCOPES = ("up_16_8", "up_8_4")  # digits that are not list indices
+
+
+def flax_xmem_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX XMem parameters -> the ``XMem-s012.pth`` state dict that
+    ``models/xmem.XMem`` loads (inverse of the JAX ``xmem_state_dict_to_flax``):
+    ``spatial_conv`` back to CBAM's ``spatial.conv``, the batch norms'
+    ``mean`` / ``var`` to their running statistics with a
+    ``num_batches_tracked`` beside them."""
+    sd = {}
+    for path, name, arr in _walk(params.get("params", params)):
+        segs = [p if p in _XMEM_DIGIT_SCOPES else _unfold_ints(p) for p in path]
+        mod, leaf, t = _perception_leaf((), name, arr)
+        sd[".".join(segs).replace("spatial_conv", "spatial.conv") + "." + leaf] = t
+    return _with_bn_counters(sd)
+
+
+# ------------------------------------------------ FlowFormer's .npz archives
+#
+# The JAX ``flowformer_params_save`` writes one array per parameter under its
+# ``jax.tree_util.keystr`` path (``['params']['fnet']['patch_embed0']['kernel']``)
+# and the config as a JSON blob under ``__config__``.  The port's FlowFormer
+# names its modules as the flax ones, so a path maps onto a state-dict key
+# by joining its scopes with dots.
+
+_KEYSTR_PART = re.compile(r"\['([^']*)'\]")
+
+
+def read_flowformer_npz(path: str):
+    """(flax parameter tree, config dict or None) of a FlowFormer archive;
+    the keystr paths are parsed here (no JAX)."""
+    import json
+
+    params, cfg = {}, None
+    with np.load(path) as z:
+        for key in z.files:
+            if key == "__config__":
+                cfg = json.loads(bytes(z[key]).decode("utf-8"))
+                continue
+            parts = _KEYSTR_PART.findall(key)
+            if "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"{path}: {key!r} is not a keystr path of a parameter")
+            node = params
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return params, cfg
+
+
+def write_flowformer_npz(path: str, params: Dict, cfg: Dict = None) -> None:
+    """Writes a flax parameter tree (and the config dict) as
+    ``flowformer_params_save`` does; the JAX ``flowformer_params_load`` reads
+    the result."""
+    import json
+
+    arrays = {"".join(f"['{p}']" for p in path + (name,)): np.asarray(arr)
+              for path, name, arr in _walk(params)}
+    if cfg is not None:
+        arrays["__config__"] = np.frombuffer(json.dumps(cfg).encode("utf-8"), dtype=np.uint8)
+    with open(path, "wb") as f:  # a file object: np.savez adds no ".npz" to it
+        np.savez(f, **arrays)
+
+
+def flax_flowformer_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX FlowFormer parameters -> the state dict of ``models/flowformer.
+    FlowFormer``: dense (I, O) and conv (H, W, I, O) kernels transposed,
+    LayerNorm ``scale`` -> ``weight``; ``latents`` and GMA's ``gamma`` as
+    they are."""
+    sd = {}
+    for path, name, arr in _walk(params.get("params", params)):
+        leaf, t = (name, arr) if name in ("latents", "gamma") else _leaf(name, arr)
+        sd[".".join(path + (leaf,))] = np.array(t, order="C")
+    return sd
+
+
+def torch_flowformer_state_dict_to_flax(sd: Dict[str, np.ndarray]) -> Dict:
+    """The inverse of ``flax_flowformer_params_to_torch``: ``{"params": ...}``
+    with flax names and layouts (a 1-D ``weight`` is a LayerNorm scale)."""
+    params: Dict = {}
+    for key, value in sd.items():
+        arr = np.asarray(value)
+        *path, leaf = key.split(".")
+        if leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf, arr = "kernel", arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(arr, order="C")
+    return {"params": params}
 
 
 # the globals an ultralytics checkpoint needs besides its own classes and
