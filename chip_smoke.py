@@ -2,8 +2,10 @@
 server, the batch-inference CLI), its VGL / VL training (from a weight folder
 and a Bridge-layout dataset, and on synthetic clips), its tools (eval
 with LPIPS, the 8-bit AdamW A/B, the app), its curation path (the
-This/That labeler and the flow-trajectory stage) and its tracking (SAM +
-XMem, FlowFormer, the XMem trainer) once on one CUDA card, with its kernels.
+This/That labeler and the flow-trajectory stage), its tracking (SAM +
+XMem, FlowFormer, the XMem trainer) and its frame I/O (the port's own JPEG
+codec and native frame loader, on the card's host) once on one CUDA card,
+with its kernels.
 
     python3 chip_smoke.py
 
@@ -11,7 +13,9 @@ Phases (any failure raises and exits nonzero):
   1. device      a CUDA card must be present; prints its name and power
                  limit; TF32 is turned off for matmuls and cuDNN convolutions
                  (the comparisons below are against full-precision plain math)
-  2. build       nvcc builds the Hopper kernels from csrc/ into build/; the
+  2. build       nvcc builds the Hopper kernels from csrc/ into build/ (the host
+                 compiler builds the host library of csrc/*.cpp beside it:
+                 JPEG codec, PNG decoder, frame loader); the
                  SASS of the bf16 K1 and K3 kernels must show wgmma (HGMMA)
                  and TMA loads (UTMALDG) and no mma.sync (HMMA), that of the
                  fp32 K1 and K3 kernels tensor-core products (HMMA or HGMMA)
@@ -55,19 +59,22 @@ Phases (any failure raises and exits nonzero):
                  latency; a served 4-step request bit for bit against a direct
                  call; a batch of two against each served alone (latents
                  rel L2, PSNR, one pipeline call); cli.inference.main over two
-                 instances (im_0.jpg as PNG bytes); the launch counters of the
+                 instances (im_0.jpg as JPEG, written by the port's encoder);
+                 the launch counters of the
                  serve and CLI paths must show K1-K3
   9. weights+data (runs after phase 8, on its tree) a Bridge-layout dataset
                  written beside the weights (4 VGL instances of 14 frames, 4
-                 VL instances of 20-56 frames, all at 480x640 as PNG bytes
-                 under the im_N.jpg names; one validation instance);
+                 VL instances of 20-56 frames, all at 480x640 as JPEG (q95
+                 4:2:0, the bytes cv2.imwrite writes); one validation
+                 instance), read by the native loader on 4 worker threads;
                  training.train_loop.main --pretrained on the shipped YAMLs
                  (dataset, tokenizer and validation keys pointed at the
                  trees): VGL 3 steps with a 25-step validation render at step
                  3, VL 2 steps.  Checks: every loaded tensor at step 0
                  bit-equal to phase 8's fp16-rounded original in the dtype it
-                 was loaded in; the first batch equal to its source frames
-                 (bicubic-resized, subsampled in VL), gesture raster and
+                 was loaded in; the first batch equal to its frames read
+                 one at a time by the plain path (read_image + numpy
+                 resize_bicubic; subsampled in VL), gesture raster and
                  prompt ids; finite losses, positive gradient norms; the
                  frozen UNet bit-unchanged, the trained model moved; the
                  render's 14 PNGs and GIF; K1-K4 on the train paths, K1-K3
@@ -77,7 +84,7 @@ Phases (any failure raises and exits nonzero):
                  cli.adam8bit_ab (300 steps, both curves falling, K4 once a
                  step) and the app's one-shot from the tree (4 steps).
                  Prints load, step and render seconds, the loader's wait a
-                 step and the peak memory
+                 step (data_wait_s) and the peak memory
   6. VGL train   training.train_loop.main on config/train_image2video_gesturenet.yaml
                  as written (14x256x384, batch 1, remat, bf16 frozen towers
                  and UNet, fp32 GestureNet, 8-bit AdamW, clip 1.0), 3 steps
@@ -90,8 +97,10 @@ Phases (any failure raises and exits nonzero):
  10. curation    (after phase 7) SAM ViT-H, YOLOv8n (one class) and RAFT-large
                  with seeded random weights, written as their published
                  formats and loaded through the native wrappers onto the card
-                 (fp32, TF32 off); an instance tree at 480x640 (PNG bytes;
-                 three instances of 20-32 frames, one too long, one too
+                 (fp32, TF32 off); an instance tree at 480x640 (PNG: the
+                 stand-in gripper detector matches the paint's exact colour,
+                 which JPEG does not keep; three instances of 20-32 frames,
+                 one too long, one too
                  short); select_frames.process_dataset with YOLOv8n and with
                  a paint detector (a stand-in for the trained gripper
                  weights), then trajectory.process_dataset_traj with RAFT
@@ -111,7 +120,9 @@ Phases (any failure raises and exits nonzero):
                  FlowFormer sintel() (12 decoder iterations), seeded random,
                  written as a .pth and a flowformer_params_save .npz and
                  loaded through XMemPropagator and NativeFlowFormerFlow (fp32,
-                 TF32 off); track_by_keypoint (a click, SAM, XMem, mask_N.png)
+                 TF32 off); on phase 10's frames rewritten as JPEG through
+                 write_jpeg (the format users feed it);
+                 track_by_keypoint (a click, SAM, XMem, mask_N.png)
                  over a curated 14-frame instance; TrackingAnything.generator
                  over the 32-frame raw instance (every frame a memory frame,
                  long-term memory capped at 400: 5 consolidations, 2
@@ -121,7 +132,7 @@ Phases (any failure raises and exits nonzero):
                  objects; the painters on one tracked frame.  Checks: files,
                  shapes, messages; the card against the port on the CPU
                  within TRACKING_BOUND (XMem's key, selection and frame-1
-                 probabilities, FlowFormer's flow, the first train step's
+                 probabilities with the top-k cut off, FlowFormer's flow, the first train step's
                  losses at batch 1 x 4 frames: 1e-4 relative; its AdamW
                  update to the formula within 1e-3 of lr, nonzero over the
                  parameters and the BN statistics; the 14 tracked masks and
@@ -131,6 +142,17 @@ Phases (any failure raises and exits nonzero):
                  K1-K4 launch.  Prints load, step and pair times (CUDA events), one
                  XMem step and one FlowFormer pair under torch.profiler, the
                  peak memory
+ 12. frames      (last; on the card's host) the JPEG goldens of
+                 tests/torch_goldens/jpeg (made by tests/make_jpeg_goldens.py
+                 with cv2, which this machine lacks): every file decoded
+                 bit-equal to cv2's pixels (their sha256 for the 480x640
+                 one), every seeded source encoded to bytes of cv2's sha256,
+                 the progressive file refused; then medians of 20 runs:
+                 decode and encode of one 480x640 q95 4:2:0 frame on one
+                 thread, load_frames_native of a 14-frame 480x640 -> 256x384
+                 batch on 1, 4 and 8 threads, and the plain path on the same
+                 batch (decode + numpy resize), held bit-equal to it; phase
+                 9's data_wait_s on its JPEG tree
 
 Prints, before the last line, one JSON line with each kernel's launches
 (summed over the paths of phases 5-11, each counted from zero), error, times and bound,
@@ -302,12 +324,34 @@ def phase_device():
 # ----------------------------------------------------------------- phase 2
 
 def phase_build():
-    from this_and_that_vdm_tpu_torch.ops import _native
+    """The kernels (nvcc) and, at the same time, the host library (the host
+    compiler: JPEG codec, PNG decoder, frame loader)."""
+    import threading
 
+    from this_and_that_vdm_tpu_torch.ops import _native
+    from this_and_that_vdm_tpu_torch.utils import host_native
+
+    host = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            host_native.library()
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            host["error"] = e
+        host["s"] = time.perf_counter() - t
+
+    worker = threading.Thread(target=build_host)
     t0 = time.perf_counter()
+    worker.start()
     _native.library()
     log(f"[build] kernels built/loaded in {time.perf_counter() - t0:.2f} s "
         f"({_native.library_path()})")
+    worker.join()
+    if "error" in host:
+        raise host["error"]
+    log(f"[build] host library built/loaded in {host['s']:.2f} s "
+        f"({host_native.library_path()})")
     sass_check(_native.library_path())
 
 
@@ -1057,15 +1101,16 @@ def instance_image(seed, hw):
 
 
 def write_instances(root, n=2):
-    """``n`` instance folders: ``im_0.jpg`` as PNG bytes (read by content,
-    as cv2.imread reads), ``lang.txt``, ``data.txt`` (the gestures above, at
-    the original 480x640)."""
+    """``n`` instance folders: ``im_0.jpg`` as JPEG (the bytes cv2.imwrite
+    writes, through the port's encoder), ``lang.txt``, ``data.txt`` (the
+    gestures above, at the original 480x640)."""
     from this_and_that_vdm_tpu_torch.utils import video_io
 
     for i in range(n):
         d = os.path.join(root, f"Instance{i}")
         os.makedirs(d)
-        video_io.write_png(os.path.join(d, "im_0.jpg"), instance_image(100 + i, ENTRY["original"]))
+        video_io.write_jpeg(os.path.join(d, "im_0.jpg"),
+                            instance_image(100 + i, ENTRY["original"]))
         with open(os.path.join(d, "lang.txt"), "w") as f:
             f.write(PROMPTS[i] + "\n")
         with open(os.path.join(d, "data.txt"), "w") as f:
@@ -1446,9 +1491,9 @@ def phase_train(mode, config, steps, profile, smi, edits=None, args=("--syntheti
 
 # Bridge-layout training data beside the weights: VGL instances of F frames,
 # VL instances of 20-56 frames (subsample_indices takes real gaps), frames
-# at the curated 480x640 as PNG bytes under the im_N.jpg names.  Every
-# prompt says left or right, which turns the flip augmentation off, so the
-# first batch compares with its source frames unflipped.
+# at the curated 480x640 as JPEG (q95 4:2:0, as cv2.imwrite writes them).
+# Every prompt says left or right, which turns the flip augmentation off, so
+# the first batch compares with its frames unflipped.
 DATA = dict(vgl_frames=(F, F, F, F), vl_frames=(20, 31, 44, 56), seed=42, validation_step=3,
             vgl_steps=3, vl_steps=2, ab_steps=300, app_steps=4)
 DATA_PROMPTS = ("push the cup to the left", "move the red block right",
@@ -1475,8 +1520,8 @@ def write_training_data(root, smi):
             d = os.path.join(paths[kind], f"inst{j}")
             os.makedirs(d)
             for i in range(n):
-                video_io.write_png(os.path.join(d, f"im_{i}.jpg"),
-                                   instance_image(frame_seed(kind, j, i), original))
+                video_io.write_jpeg(os.path.join(d, f"im_{i}.jpg"),
+                                    instance_image(frame_seed(kind, j, i), original))
             with open(os.path.join(d, "lang.txt"), "w") as f:
                 f.write(DATA_PROMPTS[j] + "\n")
             if kind == "vgl":
@@ -1485,28 +1530,28 @@ def write_training_data(root, smi):
             n_files += n
     shutil.copytree(os.path.join(root, "instances", "Instance0"),
                     os.path.join(paths["val"], "Instance0"))
-    log(f"[weights+data] wrote {n_files} frames at {original[0]}x{original[1]} (PNG bytes) "
+    log(f"[weights+data] wrote {n_files} frames at {original[0]}x{original[1]} (JPEG) "
         f"in {time.perf_counter() - t0:.3f} s  [{smi}]")
     return paths
 
 
 def first_batch_check(mode, tree, dims, smi):
     """The check of the first batch: the instance the seeded permutation puts
-    first, its frames (subsampled in VL) as ``resize_bicubic`` of the source
-    images written, its condition as the rasteriser makes it from its
-    data.txt, its prompt ids as the tree's tokenizer gives them."""
+    first, its frames (subsampled in VL) as the plain path reads them
+    (``read_image`` and numpy's ``resize_bicubic``, one frame at a time; the
+    batch came through the native loader), its condition as the rasteriser
+    makes it from its data.txt, its prompt ids as the tree's tokenizer gives
+    them."""
     from this_and_that_vdm_tpu_torch.cli.tokenizer import CLIPTokenizer
-    from this_and_that_vdm_tpu_torch.data.bridge import subsample_indices
-    from this_and_that_vdm_tpu_torch.data.image import resize_bicubic
+    from this_and_that_vdm_tpu_torch.data.bridge import load_frames_plain, subsample_indices
     from this_and_that_vdm_tpu_torch.data.rasterize import rasterize_gesture_points
 
     fr, h, w = dims
     counts = DATA["vgl_frames" if mode == "vgl" else "vl_frames"]
     first = int(np.random.RandomState(DATA["seed"]).permutation(len(counts))[0])
     idx = range(fr) if mode == "vgl" else subsample_indices(counts[first], fr)
-    frames = np.stack([resize_bicubic(instance_image(frame_seed(mode, first, i),
-                                                     ENTRY["original"]), h, w) for i in idx])
-    want = dict(video_frames=frames.astype(np.float32) / 127.5 - 1.0,
+    inst = os.path.join(tree, f"data_{mode}", f"inst{first}")
+    want = dict(video_frames=load_frames_plain(inst, idx, (h, w), normalized=True),
                 prompt_ids=CLIPTokenizer.from_pretrained(tree)([DATA_PROMPTS[first]])[0])
     if mode == "vgl":
         want["condition"] = rasterize_gesture_points(DATA_GESTURES[first % 2], ENTRY["original"],
@@ -1743,10 +1788,13 @@ def phase_weights_and_data(tree, expected, smi):
 
 # The curation path at full width: SAM ViT-H, YOLOv8n with one class and
 # RAFT-large (20 iterations), seeded random weights, fp32.  An instance tree
-# as prepare_bridge leaves one (480x640 frames as PNG bytes under im_N.jpg,
-# policy_out.pkl, lang.txt): three instances of 20-32 frames, one too long,
-# one too short.  The scene paints the gripper magenta, moving (8, 4) px a
-# frame; the gripper closes at frame 5 and opens 6 frames before the end.
+# as prepare_bridge leaves one (480x640 frames under im_N.jpg, policy_out.pkl,
+# lang.txt): three instances of 20-32 frames, one too long, one too short.
+# The frames stay PNG bytes here: the paint detector that stands in for the
+# gripper weights matches the paint's exact colour, which JPEG's 4:2:0 chroma
+# and quantisation do not keep; phase 11 rewrites them as JPEG.  The scene
+# paints the gripper magenta, moving (8, 4) px a frame; the gripper closes
+# at frame 5 and opens 6 frames before the end.
 CURATION = dict(frames=(20, 26, 32, 57, 10), hw=(480, 640), seed=77, raft_iters=20,
                 box=(64, 48), start=(200, 200), step=(8, 4), close=5)
 GRIPPER = (255, 0, 255)
@@ -2129,7 +2177,14 @@ TRACKING = dict(seed=91, clip_frames=32, label=3, click=(232, 224),
 # exceed it (the readings are in PERF.md).
 # - XMem's key and selection 1e-4: ResNet50 through layer3 and a 3x3 conv.
 # - XMem's frame-1 probabilities 1e-4: both encoders, the memory readout and
-#   the decoder.
+#   the decoder, read with the readout's top-k cut off (a softmax over all of
+#   memory).  With DEFAULT_CONFIG's top_k 30 the readout is not continuous:
+#   a query token whose 30th and 31st memory similarities lie closer than
+#   the two sides' fp32 similarity error keeps another element on the card,
+#   and the probabilities near it move by up to 2.1e-3, on PNG and JPEG
+#   frames alike (xmem_divergence.py, PERF.md section 4).  That reading
+#   (prob_topk) is logged, not held; the masks' IoU holds the path with the
+#   cut.
 # - FlowFormer's flow 1e-4: 12 recurrent iterations feed each estimate back
 #   into the cost lookup, as RAFT's 20 do in phase 10.
 # - the first train step's losses and gradient norm 1e-4 relative: 4 frames,
@@ -2238,20 +2293,24 @@ def counting(obj, name, counter, key, shrinks=None):
 
 def xmem_readings(model, frames, first_mask):
     """Key, selection (frame 0) and the frame-1 probabilities of one model,
-    on the host."""
+    on the host: ``prob`` with the memory read's top-k cut off (a softmax
+    over all of memory), ``prob_topk`` with DEFAULT_CONFIG's top_k 30."""
     from this_and_that_vdm_tpu_torch.curation import xmem_tracker as xt
     from this_and_that_vdm_tpu_torch.models.xmem import normalize_imagenet
 
     dev = next(model.parameters()).device
     x = normalize_imagenet(torch.from_numpy(frames[0].astype(np.float32) / 255.0))
     x = torch.from_numpy(xt.pad_divide_by(x.numpy(), 16)[0]).permute(2, 0, 1)[None].to(dev)
-    core = xt.XMemInferenceCore(model, xt.DEFAULT_CONFIG)
-    core.set_all_labels([1])
+    out = {}
     with torch.no_grad():
         key, _, selection = model.encode_key(x)[:3]
-        core.step(frames[0].astype(np.float32) / 255.0, first_mask[None].astype(np.float32))
-        prob = core.step(frames[1].astype(np.float32) / 255.0)
-    return dict(key=key.cpu(), selection=selection.cpu(), prob=prob.cpu())
+        out.update(key=key.cpu(), selection=selection.cpu())
+        for name, top_k in (("prob", None), ("prob_topk", xt.DEFAULT_CONFIG["top_k"])):
+            core = xt.XMemInferenceCore(model, dict(xt.DEFAULT_CONFIG, top_k=top_k))
+            core.set_all_labels([1])
+            core.step(frames[0].astype(np.float32) / 255.0, first_mask[None].astype(np.float32))
+            out[name] = core.step(frames[1].astype(np.float32) / 255.0).cpu()
+    return out
 
 
 def step_readings(model, batch, cfg):
@@ -2283,11 +2342,29 @@ def step_readings(model, batch, cfg):
     return out
 
 
+def rewrite_as_jpeg(dirs):
+    """Rewrite every ``im_N.jpg`` under ``dirs`` as JPEG through
+    ``write_jpeg`` (the bytes cv2.imwrite writes); returns the frame count."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    n = 0
+    for d in dirs:
+        for f in os.listdir(d):
+            if f.startswith("im_") and f.endswith(".jpg"):
+                path = os.path.join(d, f)
+                video_io.write_jpeg(path, video_io.read_image(path))
+                with open(path, "rb") as fh:
+                    if fh.read(2) != b"\xff\xd8":
+                        raise RuntimeError(f"{path} is not JPEG after write_jpeg")
+                n += 1
+    return n
+
+
 def phase_tracking(smi, root, ctx):
     """Phase 11: click-to-mask tracking (SAM + XMem), FlowFormer in the
     trajectory stage, the XMem trainer and the painters on the card at full
-    width, against the port on the CPU.  Reuses phase 10's trees and SAM.
-    Returns (report, launch counts of the phase)."""
+    width, against the port on the CPU.  Reuses phase 10's trees (rewritten
+    as JPEG) and SAM.  Returns (report, launch counts of the phase)."""
     from this_and_that_vdm_tpu_torch import ops
     from this_and_that_vdm_tpu_torch.curation import (detectors, painters, tracking,
                                                       trajectory, xmem_tracker)
@@ -2298,6 +2375,11 @@ def phase_tracking(smi, root, ctx):
 
     t_phase = time.perf_counter()
     rep = {}
+    t0 = time.perf_counter()
+    curated = [os.path.join(ctx["curated"], n) for n in sorted(os.listdir(ctx["curated"]))]
+    rep["jpeg_frames"] = rewrite_as_jpeg(curated + [os.path.join(ctx["raw"], ctx["names"][2])])
+    log(f"[tracking] rewrote phase 10's {rep['jpeg_frames']} curated and 32-frame raw frames "
+        f"as JPEG in {time.perf_counter() - t0:.3f} s  [{smi}]")
     t0 = time.perf_counter()
     paths = {"xmem": os.path.join(root, "XMem-s012.pth"),
              "flowformer": os.path.join(root, "flowformer_sintel.npz")}
@@ -2476,7 +2558,7 @@ def phase_tracking(smi, root, ctx):
     cpu_model = tracking.load_xmem(paths["xmem"], "cpu")
     want = xmem_readings(cpu_model, frames, first.mask)
     got = xmem_readings(prop.model, frames, first.mask)
-    err = {k: rel_err(got[k], want[k])[1] for k in ("key", "selection", "prob")}
+    err = {k: rel_err(got[k], want[k])[1] for k in ("key", "selection", "prob", "prob_topk")}
     cpu_masks = xmem_tracker.xmem_propagator(cpu_model)(frames, first.mask)
     ious = [iou(a, b) for a, b in zip(masks, cpu_masks)]
     err["iou_min"] = min(ious)
@@ -2535,6 +2617,96 @@ def phase_tracking(smi, root, ctx):
     return rep, rep["launches"]
 
 
+# ----------------------------------------------------------------- phase 12
+
+# The frame I/O on the card's host: goldens, then a Bridge batch of real
+# JPEG frames at the curated size through the native loader and the plain
+# path.  Times are medians of `runs` wall-clock runs.
+FRAMES = dict(batch=14, original=(480, 640), hw=(256, 384), threads=(1, 4, 8), runs=20,
+              seed=900)
+
+
+def jpeg_goldens():
+    """``tests/make_jpeg_goldens.py``, loaded by its path (numpy only here)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "make_jpeg_goldens.py")
+    spec = importlib.util.spec_from_file_location("make_jpeg_goldens", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def median_s(fn, runs):
+    """(median, all) wall seconds of ``runs`` calls of ``fn``, after one
+    untimed call."""
+    fn()
+    ts = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), ts
+
+
+def phase_frames(smi, data_wait):
+    """Phase 12: the JPEG goldens on this machine (no cv2 here), codec and
+    loader times, the loader held bit-equal to the plain path at full size;
+    ``data_wait`` is phase 9's VGL wait a step on its JPEG tree."""
+    from this_and_that_vdm_tpu_torch.data import bridge, native_loader
+    from this_and_that_vdm_tpu_torch.utils import host_native, video_io
+
+    goldens = jpeg_goldens()
+    t0 = time.perf_counter()
+    rows = goldens.check_goldens(host_native.decode_jpeg, host_native.encode_jpeg)
+    rep = dict(goldens=[list(r) for r in rows], goldens_s=time.perf_counter() - t0)
+    bad = [r for r in rows if not r[2]]
+    log(f"[frames] JPEG goldens: {len(rows) - len(bad)} of {len(rows)} hold (decode bit-equal "
+        f"to cv2's pixels, encode to cv2's bytes, progressive refused) in "
+        f"{rep['goldens_s']:.3f} s  [{smi}]")
+    if bad:
+        raise RuntimeError(f"frames: goldens that fail {bad}")
+
+    runs = FRAMES["runs"]
+    with open(os.path.join(goldens.HERE, "frame_480x640.jpg"), "rb") as f:
+        data = f.read()
+    img = host_native.decode_jpeg(data)
+    rep["decode_s"], rep["decode_runs"] = median_s(lambda: host_native.decode_jpeg(data), runs)
+    rep["encode_s"], rep["encode_runs"] = median_s(lambda: host_native.encode_jpeg(img), runs)
+    log(f"[frames] one 480x640 q95 4:2:0 frame on one thread: decode {rep['decode_s'] * 1e3:.3f}"
+        f" ms, encode {rep['encode_s'] * 1e3:.3f} ms (median of {runs})  [{smi}]")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_frames_")
+    try:
+        n, hw = FRAMES["batch"], FRAMES["hw"]
+        paths = [video_io.write_jpeg(os.path.join(tmp, f"im_{i}.jpg"),
+                                     goldens.source_image(FRAMES["seed"] + i, *FRAMES["original"]))
+                 for i in range(n)]
+        rep["loader_s"] = {}
+        for t in FRAMES["threads"]:
+            rep["loader_s"][t], _ = median_s(
+                lambda: native_loader.load_frames_native(paths, hw, num_threads=t), runs)
+        rep["plain_s"], _ = median_s(
+            lambda: bridge.load_frames_plain(tmp, range(n), hw, normalized=True), runs)
+        same = {flip: bool(np.array_equal(
+            native_loader.load_frames_native(paths, hw, flip), bridge.load_frames_plain(
+                tmp, range(n), hw, flip, normalized=True))) for flip in (False, True)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[frames] load_frames_native, {n} frames {FRAMES['original'][0]}x"
+        f"{FRAMES['original'][1]} -> {hw[0]}x{hw[1]}: "
+        + ", ".join(f"{t} threads {s * 1e3:.3f} ms" for t, s in rep["loader_s"].items())
+        + f"; the plain path {rep['plain_s'] * 1e3:.3f} ms; bit-equal to it (flip off, on) "
+        f"{same[False]}, {same[True]}  [{smi}]")
+    if not all(same.values()):
+        raise RuntimeError("frames: the native loader differs from the plain path")
+    rep["data_wait_s"] = data_wait
+    log(f"[frames] phase 9 VGL on its JPEG tree, 4 loader workers: data_wait_s first batch "
+        f"{data_wait[0]:.4f} s, after it {[round(x, 4) for x in data_wait[1:]]} s  [{smi}]")
+    return rep
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2568,6 +2740,7 @@ def main():
     finally:
         ctx = None
         shutil.rmtree(curation_root, ignore_errors=True)
+    frames = phase_frames(smi, [m["data_wait_s"] for m in weights_data["vgl"]["metrics"]])
     paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
                  **{f"train_{t['mode']}": t["launches"] for t in train},
                  curation=curation_counts, tracking=tracking_counts)
@@ -2588,7 +2761,7 @@ def main():
                        denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, entry_points=entry, train=train,
                        weights_and_data=weights_data, curation=curation, tracking=tracking,
-                       wall_s=time.perf_counter() - t_start), f, indent=1)
+                       frames=frames, wall_s=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

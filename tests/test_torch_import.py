@@ -24,9 +24,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 from this_and_that_vdm_tpu_torch.ops import _native
+from this_and_that_vdm_tpu_torch.utils import host_native
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
              "this_and_that_vdm_tpu.")) or m == "this_and_that_vdm_tpu")
-print(len(names), bad, _native._lib)
+print(len(names), bad, _native.LIB.lib, host_native.LIB.lib)
 """
 
 
@@ -36,7 +37,8 @@ def test_importing_every_module_leaves_jax_out():
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     out = res.stdout.strip()
-    assert out.endswith("[] None"), out  # no jax/flax/JAX package; no kernel library built
+    # no jax/flax/JAX package; neither the kernel nor the host library built
+    assert out.endswith("[] None None"), out
     assert int(out.split(" ")[0]) >= 20, out
 
 
@@ -54,7 +56,7 @@ def test_training_tools_are_among_the_modules_imported():
                  "curation.select_frames", "curation.trajectory", "curation.flow_eval",
                  "models.xmem", "models.flowformer", "curation.xmem_tracker",
                  "curation.tracking", "curation.painters", "curation.tools",
-                 "training.xmem_trainer"):
+                 "training.xmem_trainer", "data.native_loader", "utils.host_native"):
         assert f"{pkg.__name__}.{name}" in names, name
 
 
@@ -71,7 +73,7 @@ from this_and_that_vdm_tpu_torch import app
 from this_and_that_vdm_tpu_torch.cli import (adam8bit_ab, eval, inference, rehearsal, sweep,
                                              tokenizer)
 from this_and_that_vdm_tpu_torch.curation import prepare_bridge
-from this_and_that_vdm_tpu_torch.data import bridge, image, rasterize
+from this_and_that_vdm_tpu_torch.data import bridge, image, native_loader, rasterize
 from this_and_that_vdm_tpu_torch.training import train_loop, validation
 from this_and_that_vdm_tpu_torch.utils import lpips, profiling
 from this_and_that_vdm_tpu_torch.serving import VideoGenServer
@@ -107,15 +109,26 @@ with open(os.path.join(d, "fake.jpg"), "wb") as f:
     f.write(bytes([0xFF, 0xD8, 0xFF, 0xE0]) + bytes(16))
 try:
     video_io.read_image(os.path.join(d, "fake.jpg"))
-    raise AssertionError("a JPEG was read with no decoder")
-except RuntimeError as e:
-    assert "cv2" in str(e) and "PIL" in str(e), e
-# a Bridge instance of PNG-bytes frames through the datasets and the loader
+    raise AssertionError("a broken JPEG was read")
+except ValueError as e:
+    assert "fake.jpg" in str(e), e
+# JPEG written and read by the port's own codec, with no cv2 or PIL
+video_io.write_image(os.path.join(inst, "im_0.jpg"), rgb)
+with open(os.path.join(inst, "im_0.jpg"), "rb") as f:
+    assert f.read(4) == bytes([0xFF, 0xD8, 0xFF, 0xE0])
+back = video_io.read_image(os.path.join(inst, "im_0.jpg"))
+assert back.shape == rgb.shape and np.abs(back.astype(int) - rgb).mean() < 20
+assert image.image_size(os.path.join(inst, "im_0.jpg")) == (16, 24)
+assert inference._load_instance_image(inst, 8, 12).shape == (8, 12, 3)
+assert native_loader.load_frames_native([os.path.join(inst, "im_0.jpg")] * 2, (8, 12)).shape == (
+    2, 8, 12, 3)
+# Bridge instances of PNG-bytes and of JPEG frames through the datasets and
+# the loader
 for k in range(2):
     ik = os.path.join(d, "data", f"i{k}")
     os.makedirs(ik)
     for i in range(3):
-        video_io.write_png(os.path.join(ik, f"im_{i}.jpg"), rgb)
+        (video_io.write_jpeg if k else video_io.write_png)(os.path.join(ik, f"im_{i}.jpg"), rgb)
     with open(os.path.join(ik, "lang.txt"), "w") as f:
         f.write("push the cup\\n")
     with open(os.path.join(ik, "data.txt"), "w") as f:
@@ -318,7 +331,7 @@ def test_cpu_tensor_takes_plain_version_and_launches_nothing(case):
     torch.testing.assert_close(wrapper(), plain(), rtol=0, atol=0)
     assert ops.launch_counts() == {"flash_attention": 0, "groupnorm": 0, "ln_matmul": 0,
                                    "adam8bit": 0}
-    assert _native._lib is None
+    assert _native.LIB.lib is None
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "groupnorm", "ln_matmul", "adam8bit"])

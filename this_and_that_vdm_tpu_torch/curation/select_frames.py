@@ -19,7 +19,7 @@ injected (detectors.py):
   (:316-349); soft-failure accounting via returned messages (:406-431).
 
 Frames are read by content (``utils/video_io.read_image``: PNG bytes or a
-JPEG) and flipped to the BGR order ``cv2.imread`` gives; ``mask_0.png`` is
+JPEG, through the port's own decoder) and flipped to the BGR order ``cv2.imread`` gives; ``mask_0.png`` is
 written by the port's PNG writer, so neither cv2 nor PIL is needed.
 """
 

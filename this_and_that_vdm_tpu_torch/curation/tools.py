@@ -11,9 +11,11 @@ reference scripts/ and curation_pipeline/).
   / ``generate_noise_images`` / ``active_learning_select`` /
   ``process_sim_dataset``: the remaining dataset scripts.
 
-Images are read by content (``utils/video_io.read_image``) and written as
-PNG bytes, so none of this needs cv2 except ``check_videos``, which decodes
-videos with it and says so where it is missing.
+Images are read by content (``utils/video_io.read_image``) and written by
+their extension (``write_image``: JPEG through the port's own encoder, the
+bytes ``cv2.imwrite`` writes; PNG), so none of this needs cv2 except
+``check_videos``, which decodes videos with it and says so where it is
+missing.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..data.image import resize_bicubic
-from ..utils.video_io import read_image, write_png
+from ..utils.video_io import read_image, write_image, write_png
 from .painters import filled_circle
 
 
@@ -116,7 +118,8 @@ def resize_video_seq(input_dir: str, store_dir: str,
                      target_hw: Tuple[int, int] = (256, 384)) -> int:
     """Resize every frame of every video folder with cv2's bicubic
     (``data/image.resize_bicubic``; reference scripts/resize_video_seq.py),
-    written as PNG bytes under the same names.  Returns the count."""
+    written under the same names as JPEG (``.jpg``) or PNG (``.png``), as
+    ``cv2.imwrite`` writes them.  Returns the count."""
     os.makedirs(store_dir, exist_ok=True)
     n = 0
     for video in sorted(os.listdir(input_dir)):
@@ -128,7 +131,7 @@ def resize_video_seq(input_dir: str, store_dir: str,
         for name in sorted(os.listdir(src)):
             if name.endswith((".jpg", ".png")):
                 img = resize_bicubic(read_image(os.path.join(src, name)), *target_hw)
-                write_png(os.path.join(dst, name), img)
+                write_image(os.path.join(dst, name), img)
                 n += 1
     return n
 

@@ -12,8 +12,8 @@ ckpt``, published raft-things/sintel checkpoints) or FlowFormer
 card unless ``--device cpu``; a vendored FlowFormer (as the reference
 expects its user to do); or cv2's Farneback (detectors.farneback_flow,
 which needs cv2).
-Frames are read by content (``utils/video_io.read_image``), so PNG bytes
-need neither cv2 nor PIL.
+Frames are read by content (``utils/video_io.read_image``: PNG, or JPEG
+through the port's own decoder), so neither cv2 nor PIL is needed.
 """
 
 from __future__ import annotations

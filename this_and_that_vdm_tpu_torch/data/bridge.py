@@ -8,11 +8,11 @@ data_loader/video_dataset.py and video_this_that_dataset.py).
   motion bucket; rejects counted by kind;
 * frame subsample: gaps ``[N // F] * (F - 1)`` with the remainder spread
   alternately front / back;
-* frames decoded by ``utils.video_io.read_image`` (RGB, by the file's
-  signature: PNG here, JPEG through cv2 / PIL where installed), bicubic
-  resize on uint8 (``data.image.resize_bicubic``), flip aug p = 0.45
-  suppressed when the prompt mentions left / right; a frame that cannot be
-  decoded raises;
+* frames read by the native loader (``data.native_loader``: PNG or JPEG
+  by the file's signature through the port's own codecs, bicubic resize on
+  uint8 bit-equal to ``data.image.resize_bicubic``, on C++ threads), flip
+  aug p = 0.45 suppressed when the prompt mentions left / right; a frame
+  that cannot be decoded raises;
 * ``mix_ambiguous``: prompt rewrite to this / there with the 0.4/0.2/0.2/0.2
   mixture from ``processed_text.txt``;
 * motion bucket: fixed ``motion_bucket_id``, or per-video flow -> z-score ->
@@ -36,6 +36,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from ..utils.video_io import read_image
+from . import native_loader
 from .image import resize_bicubic
 from .rasterize import load_condition
 
@@ -84,7 +85,19 @@ def load_frames(path: str, indices: Sequence[int], hw, flip: bool = False,
                 normalized: bool = False) -> np.ndarray:
     """``[len(indices), H, W, 3]`` float32 RGB of ``im_<i>.jpg``: decoded,
     resized bicubic on uint8 (as cv2 resizes a uint8 image), optionally
-    flipped; in [0, 255], or [-1, 1] when ``normalized``."""
+    flipped; in [0, 255], or [-1, 1] when ``normalized``.  Through the
+    native loader (as the JAX package once its library is built)."""
+    paths = [os.path.join(path, f"im_{i}.jpg") for i in indices]
+    if normalized:
+        return native_loader.load_frames_native(paths, hw, flip)
+    return native_loader.load_frames_native_u8(paths, hw, flip).astype(np.float32)
+
+
+def load_frames_plain(path: str, indices: Sequence[int], hw, flip: bool = False,
+                      normalized: bool = False) -> np.ndarray:
+    """``load_frames`` one frame at a time in Python (``read_image``, then
+    numpy's ``resize_bicubic``): the plain version the native loader is
+    held to."""
     h, w = hw
     frames = []
     for i in indices:

@@ -5,8 +5,12 @@ the standard library and numpy only.
 - ``write_png`` / ``read_png``: 8-bit PNG (``zlib``); the reader takes
   greyscale, RGB and RGBA at 8 bits, every row filter, no interlace.
 - ``read_image``: RGB uint8 by the file's signature (``cv2.imread`` also
-  reads by content): PNG through ``read_png``; JPEG through ``cv2`` or
-  ``PIL``, whichever is installed, else an error naming both.
+  reads by content): PNG through ``read_png``; JPEG through the port's own
+  decoder (``utils.host_native``: ``cv2.imread``'s pixels, on every
+  machine, with no cv2 or PIL).
+- ``write_jpeg``: the bytes ``cv2.imwrite`` writes for a ``.jpg`` (quality
+  95, 4:2:0), through the port's own encoder; ``write_image`` picks PNG or
+  JPEG by the file's extension, as ``cv2.imwrite`` does.
 - ``export_gif``: GIF89a with a fixed 3-3-2 palette and its own LZW coder.
 - ``export_mp4``: mp4 through imageio where it has a writer, else a GIF.
 - ``psnr``, ``ssim`` (11x11 Gaussian window, sigma 1.5, the window's
@@ -21,6 +25,8 @@ import zlib
 from typing import List, Sequence
 
 import numpy as np
+
+from . import host_native
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -113,26 +119,36 @@ def read_png(path: str) -> np.ndarray:
 
 def read_image(path: str) -> np.ndarray:
     """``[H, W, 3]`` uint8 RGB of a PNG or JPEG file, told apart by the
-    file's signature, not its name."""
+    file's signature, not its name.  A file neither reads raises
+    ``ValueError`` naming it."""
     with open(path, "rb") as f:
-        sig = f.read(8)
-    if sig == _PNG_SIG:
+        data = f.read()
+    if data[:8] == _PNG_SIG:
         return read_png(path)
-    if sig[:2] != b"\xff\xd8":
+    if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: neither PNG nor JPEG")
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(f"{path} is a JPEG file: decoding it needs cv2 or PIL, and neither "
-                           "is installed (PNG bytes are read without either)") from None
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+    return host_native.decode_jpeg(data, path)
+
+
+def write_jpeg(path: str, rgb: np.ndarray) -> str:
+    """Write an ``[H, W, 3]`` uint8 RGB image, or an ``[H, W]`` grey one, as
+    the JPEG bytes ``cv2.imwrite`` writes for it at its defaults."""
+    data = host_native.encode_jpeg(rgb)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+_WRITERS = {".png": write_png, ".jpg": write_jpeg, ".jpeg": write_jpeg, ".jpe": write_jpeg}
+
+
+def write_image(path: str, rgb: np.ndarray) -> str:
+    """``write_png`` or ``write_jpeg`` by the extension of ``path`` (the
+    format ``cv2.imwrite`` would pick); any other extension raises."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in _WRITERS:
+        raise ValueError(f"{path}: no image writer for {ext!r} (.png, .jpg, .jpeg, .jpe)")
+    return _WRITERS[ext](path, rgb)
 
 
 def load_frames_dir(path: str, ext: str = ".png") -> List[np.ndarray]:
