@@ -154,8 +154,27 @@ Phases (any failure raises and exits nonzero):
                  batch (decode + numpy resize), held bit-equal to it; phase
                  9's data_wait_s on its JPEG tree
 
+ 13. mesh        (last) parallel/mesh.py on the one card: K4 over two ranges of
+                 the GestureNet's arena rows (the fsdp split's unit), each
+                 bit-equal to those rows of the whole-tree launch and within
+                 phase 3's K4 bounds of the plain version; train_loop --devices
+                 1 --fsdp 1 on the VGL YAML as phase 6 runs it (a real NCCL
+                 group of one: the gradient bucket's reduce-scatter and
+                 all-reduce, K4 on the rank's block rows, the parameters'
+                 all-gather, the collective checkpoint), its losses and
+                 gradient norms within MESH_TRAIN_REL_BOUND of phase 6's and
+                 its checkpoint restored bit-equal; VideoGenServer on
+                 make_serving_mesh([cuda:0, cuda:0], cfg=2) (the CFG branches
+                 apart) answering two 4-step VGL requests at full width, their
+                 final latents within MESH_SERVE_REL_L2_BOUND of the same
+                 requests served unsplit, and on a clip=2 x cfg=1 mesh a batch
+                 of the two, each clip bit-equal to its request served alone;
+                 K1-K4 on the train path and K1-K3 on the mesh serve path.
+                 Prints the phase's wall time, the world-1 step time beside
+                 phase 6's and the served latency beside phase 8's
+
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the paths of phases 5-11, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-13, each counted from zero), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -1487,6 +1506,240 @@ def phase_train(mode, config, steps, profile, smi, edits=None, args=("--syntheti
                 checks=rec["checks"], state_params=rec["state_params"], wall_s=wall)
 
 
+# ---------------------------------------------------------------- phase 13
+
+# The world-1 NCCL step against phase 6's one-rank step: the bound of the
+# JAX multichip oracle (__graft_entry__.py), loss and global gradient norm.
+MESH_TRAIN_REL_BOUND = 5e-3
+# The CFG branches served apart against the same requests served unsplit:
+# relative L2 of the final latents.  The branches run at batch 1 where the
+# unsplit loop runs at batch 2, so bf16 reductions sized by the batch (K2's
+# plan, cuBLAS and cuDNN algorithms) round differently over 4 steps.
+MESH_SERVE_REL_L2_BOUND = 5e-2
+MESH = dict(steps=4, seeds=(31, 32),
+            points=([(0, 150.0, 120.0)], [(0, 120.0, 100.0), (F - 1, 260.0, 150.0)]))
+
+
+def k4_row_ranges(smi):
+    """K4 over two ranges of the GestureNet's arena rows (cut inside a
+    leaf), against the same rows of the whole-tree launch (bit for bit) and
+    of the plain version (phase 3's K4 bounds)."""
+    from this_and_that_vdm_tpu_torch.ops import adam8bit as k4
+
+    numels = gesturenet_numels()
+    ins, total = k4_tree_inputs(numels, 14)
+    bc = k4.bias_corrections(1000, 0.9, 0.999)
+    whole = k4.adam8bit_leaves(*ins, bc)
+    plain = k4._plain_leaves(*ins, bc, 0.9, 0.999, 1e-8)
+    cut = total // 2 + 37
+    rep = dict(total_blocks=total, cut=cut, ranges=[])
+    for lo, hi in ((0, cut), (cut, total)):
+        parts, got = k4.adam8bit_rows(*ins, bc, (lo, hi))
+        sync()
+
+        def rows(res):
+            out = [[], [], [], [], []]
+            for i, e0, e1 in parts:
+                b0, b1 = e0 // 256, -(-e1 // 256)
+                for lst, t in zip(out, (res[0][i].reshape(-1)[e0:e1],
+                                        res[1][i][b0 * 256:b1 * 256], res[2][i][b0:b1],
+                                        res[3][i][b0 * 256:b1 * 256], res[4][i][b0:b1])):
+                    lst.append(t)
+            return out
+
+        equal = all(torch.equal(a, b) for lst_a, lst_b in zip(got, rows(whole))
+                    for a, b in zip(lst_a, lst_b))
+        sizes = [e1 - e0 for _, e0, e1 in parts]
+        abs_err, rel, off = k4_tree_compare(got, rows(plain), sizes)
+        rep["ranges"].append(dict(rows=(lo, hi), pieces=len(parts), elements=sum(sizes),
+                                  equal_to_whole_launch=equal, plain_max_abs_err=abs_err,
+                                  plain_codes_off_share=off))
+        log(f"[mesh] K4 rows [{lo}, {hi}) of {total}: {len(parts)} pieces, {sum(sizes)} "
+            f"parameters; bit-equal to those rows of the whole-tree launch: {equal}; against "
+            f"the plain version step max_abs {abs_err:.3e}, codes off by 1 on {off:.2e}  [{smi}]")
+        if not equal:
+            raise RuntimeError(f"mesh: K4 over rows [{lo}, {hi}) differs from the whole launch")
+    if sum(r["elements"] for r in rep["ranges"]) != sum(numels):
+        raise RuntimeError("mesh: the two row ranges do not cover the tree")
+    return rep
+
+
+def mesh_train(smi, ref):
+    """train_loop --devices 1 --fsdp 1 (a world-1 NCCL group) on the VGL
+    YAML as phase 6 ran it; ``ref``: phase 6's result."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.training import checkpoint as ckpt
+    from this_and_that_vdm_tpu_torch.training import train_loop
+
+    mode, config, steps, _ = TRAIN_CONFIGS[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    rec = dict(metrics=[], step_s=[], resume=None)
+    try:
+        with open(config) as f:
+            lines = [f"output_dir: {tmp}/out" if line.startswith("output_dir:") else line
+                     for line in f.read().splitlines()]
+        cfg_path = os.path.join(tmp, os.path.basename(config))
+        with open(cfg_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+        def on_step(step, state, m, models):
+            sync()
+            if rec["resume"] is not None:
+                rec["step_s"].append(time.perf_counter() - rec["resume"])
+            if step == 0:
+                rec["sharded"] = state.rows is not None
+                ops.reset_launch_counts()  # the main path's launches only
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                rec["metrics"].append(dict(step=step, loss=float(m["loss"]),
+                                           grad_norm=float(m["grad_norm"])))
+            if step == steps:
+                adam = state.opt_state[1][0]
+                rec["params"] = {k: p.detach().clone() for k, p in state.params.items()}
+                rec["moments"] = [(q.q.clone(), q.scale.clone()) for d in (adam.mu, adam.nu)
+                                  for q in d.values()]
+            sync()
+            rec["resume"] = time.perf_counter()
+
+        t0 = time.perf_counter()
+        state = train_loop.main(["--config", cfg_path, "--mode", mode, "--max-steps", str(steps),
+                                 "--synthetic", "4", "--devices", "1", "--fsdp", "1"],
+                                on_step=on_step)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        latest = ckpt.latest_checkpoint(f"{tmp}/out")
+        restored = ckpt.restore_checkpoint(latest, state)
+        adam = restored.opt_state[1][0]
+        got = [q for d in (adam.mu, adam.nu) for q in d.values()]
+        moments_equal = len(got) == len(rec["moments"]) and all(
+            torch.equal(q.q, mq) and torch.equal(q.scale, ms)
+            for q, (mq, ms) in zip(got, rec["moments"]))
+        params_equal = all(torch.equal(p.detach(), rec["params"][k])
+                           for k, p in restored.params.items())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rels = [max(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+            for a, b in zip(rec["metrics"], ref["metrics"])]
+    timed = rec["step_s"][1:]
+    rep = dict(metrics=rec["metrics"], phase6_metrics=ref["metrics"], rel_to_phase6=rels,
+               sharded_state=rec["sharded"], checkpoint_params_equal=params_equal,
+               checkpoint_moments_equal=moments_equal, step_s=rec["step_s"],
+               timed_step_s=timed, phase6_timed_step_s=ref["timed_step_s"], launches=counts,
+               peak_bytes=peak, phase6_peak_bytes=ref["peak_bytes"], wall_s=wall)
+    for a, r in zip(rec["metrics"], rels):
+        log(f"[mesh] world-1 NCCL VGL step {a['step']}: loss {a['loss']:.6f} grad_norm "
+            f"{a['grad_norm']:.6f}; worst relative difference to phase 6 {r:.3e} (bound "
+            f"{MESH_TRAIN_REL_BOUND:.0e})")
+    log(f"[mesh] world-1 train: seconds per step {[round(t, 4) for t in rec['step_s']]} (timed "
+        f"steps >= 2: {[round(t, 4) for t in timed]}; phase 6: "
+        f"{[round(t, 4) for t in ref['timed_step_s']]}); checkpoint restored bit-equal: "
+        f"params {params_equal}, 8-bit moments {moments_equal}; peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 6: {ref['peak_bytes'] / 2**30:.2f}); launches {counts}; "
+        f"wall {wall:.1f} s  [{smi}]")
+    if not (rec["sharded"] and len(rels) == steps and max(rels) <= MESH_TRAIN_REL_BOUND):
+        raise RuntimeError(f"mesh train: {rep}")
+    if not (params_equal and moments_equal):
+        raise RuntimeError("mesh train: the checkpoint did not restore bit-equal")
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"mesh train: the path skipped a kernel: {counts}")
+    return rep, counts
+
+
+@torch.no_grad()
+def mesh_serve(smi, entry_ref):
+    """Two 4-step VGL requests at full width served unsplit, on a cfg=2
+    serving mesh and as one batch on a clip=2 x cfg=1 mesh."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.parallel import make_serving_mesh
+    from this_and_that_vdm_tpu_torch.pipelines import StableVideoDiffusionControlNetPipeline
+    from this_and_that_vdm_tpu_torch.serving import VideoGenServer
+
+    base = build_pipeline()
+    mods = dict(unet=base.unet, vae=base.vae, image_encoder=base.image_encoder,
+                controlnet=base.controlnet, text_encoder=base.text_encoder)
+    reqs = []
+    for seed, points in zip(MESH["seeds"], MESH["points"]):
+        image, ids, _ = request_inputs(seed)
+        reqs.append((image[0].cpu().numpy(), gesture_raster(points, seed), ids[0].cpu().numpy(),
+                     seed))
+    common = dict(num_frames=F, num_inference_steps=MESH["steps"],
+                  decode_chunk_size=DECODE_CHUNK, output_type="uint8")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def serve(mesh, **kw):
+        pipe = StableVideoDiffusionControlNetPipeline(**mods)
+        traces, lat = [{} for _ in reqs], []
+        with VideoGenServer(pipe, mesh=mesh, **common, **kw) as server:
+            t0 = time.perf_counter()
+            outs = []
+            for (image, cond, ids, seed), tr in zip(reqs, traces):
+                f = server.submit(image, condition=cond, prompt_ids=ids, seed=seed, trace=tr)
+                outs.append(f.result(timeout=900))
+                lat.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+            max_batch = server.max_batch
+        return outs, [tr["latents"].float() for tr in traces], lat, max_batch
+
+    alone, alone_lat, alone_s, _ = serve(None)
+    ops.reset_launch_counts()
+    split, split_lat, split_s, split_mb = serve(make_serving_mesh([dev, dev], cfg=2))
+    counts = ops.launch_counts()
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(split_lat, alone_lat)]
+    max_abs = [(a - b).abs().max().item() for a, b in zip(split_lat, alone_lat)]
+    finite = all(torch.isfinite(x).all().item() for x in split_lat)
+    shapes = all(o.shape == (F, H, W, 3) and o.dtype == np.uint8 for o in split)
+
+    # a batch of the two on a clip=2 x cfg=1 mesh: each clip from its own part
+    pipe = StableVideoDiffusionControlNetPipeline(**mods)
+    shared = {}
+    with VideoGenServer(pipe, mesh=make_serving_mesh([dev, dev], cfg=1), max_delay_s=5.0,
+                        trace=shared, **common) as server:
+        clip_mb = server.max_batch
+        futs = [server.submit(image, condition=cond, prompt_ids=ids, seed=seed)
+                for image, cond, ids, seed in reqs]
+        batched = [f.result(timeout=900) for f in futs]
+        batch_sizes = [f.timing["batch"] for f in futs]
+    clips_equal = [torch.equal(shared["latents"][j].float(), alone_lat[j][0])
+                   for j in range(len(reqs))]
+    frames_equal = [bool(np.array_equal(b, a)) for b, a in zip(batched, alone)]
+    rep = dict(steps=MESH["steps"], latents_rel_l2=rel, latents_max_abs=max_abs,
+               bound=MESH_SERVE_REL_L2_BOUND, unsplit_s=alone_s, cfg_split_s=split_s,
+               phase8_latency_s=[r["latency_s"] for r in entry_ref.get("serve", [])],
+               max_batch=dict(cfg2=split_mb, clip2=clip_mb), clip_batch=batch_sizes,
+               clip_latents_equal=clips_equal, clip_frames_equal=frames_equal, launches=counts)
+    log(f"[mesh] cfg=2 mesh on [{dev}, {dev}] ({MESH['steps']} steps, 14x256x384 bf16): final "
+        f"latents against the same requests served unsplit: rel L2 "
+        f"{[f'{x:.3e}' for x in rel]} (bound {MESH_SERVE_REL_L2_BOUND:.0e}), max abs "
+        f"{[f'{x:.3e}' for x in max_abs]}; latency (s) split {[round(t, 3) for t in split_s]}, "
+        f"unsplit {[round(t, 3) for t in alone_s]} (phase 8, 25 steps: "
+        f"{[round(t, 3) for t in rep['phase8_latency_s']]}); max_batch {split_mb}; launches "
+        f"{counts}  [{smi}]")
+    log(f"[mesh] clip=2 x cfg=1 mesh: max_batch {clip_mb}, batch sizes {batch_sizes}; each "
+        f"clip's latents equal to its request served alone: {clips_equal}, frames: "
+        f"{frames_equal}  [{smi}]")
+    if not (finite and shapes and max(rel) <= MESH_SERVE_REL_L2_BOUND):
+        raise RuntimeError(f"mesh serve: {rep}")
+    if not (split_mb == 1 and clip_mb == 2 and batch_sizes == [2, 2] and all(clips_equal)):
+        raise RuntimeError(f"mesh serve: the clip split: {rep}")
+    if min(counts[k] for k in INFERENCE_KERNELS) == 0:
+        raise RuntimeError(f"mesh serve: the path skipped a kernel: {counts}")
+    return rep, counts
+
+
+def phase_mesh(smi, train_ref, entry_ref):
+    t0 = time.perf_counter()
+    rep = dict(k4_rows=k4_row_ranges(smi))
+    rep["train"], train_counts = mesh_train(smi, train_ref)
+    torch.cuda.empty_cache()
+    rep["serve"], serve_counts = mesh_serve(smi, entry_ref)
+    torch.cuda.empty_cache()
+    rep["wall_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase wall {rep['wall_s']:.1f} s  [{smi}]")
+    return rep, dict(mesh_train=train_counts, mesh_serve=serve_counts)
+
+
 # ----------------------------------------------------------------- phase 9
 
 # Bridge-layout training data beside the weights: VGL instances of F frames,
@@ -2741,9 +2994,10 @@ def main():
         ctx = None
         shutil.rmtree(curation_root, ignore_errors=True)
     frames = phase_frames(smi, [m["data_wait_s"] for m in weights_data["vgl"]["metrics"]])
+    mesh, mesh_counts = phase_mesh(smi, train[0], entry)
     paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
                  **{f"train_{t['mode']}": t["launches"] for t in train},
-                 curation=curation_counts, tracking=tracking_counts)
+                 curation=curation_counts, tracking=tracking_counts, **mesh_counts)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2761,7 +3015,8 @@ def main():
                        denoise_step_profile=step, requests=stages,
                        peak_bytes=peak, entry_points=entry, train=train,
                        weights_and_data=weights_data, curation=curation, tracking=tracking,
-                       frames=frames, wall_s=time.perf_counter() - t_start), f, indent=1)
+                       frames=frames, mesh=mesh, wall_s=time.perf_counter() - t_start), f,
+                  indent=1)
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

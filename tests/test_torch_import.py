@@ -42,6 +42,30 @@ def test_importing_every_module_leaves_jax_out():
     assert int(out.split(" ")[0]) >= 20, out
 
 
+_IMPORT_PARALLEL = """
+import sys
+from this_and_that_vdm_tpu_torch import parallel
+from this_and_that_vdm_tpu_torch.parallel import mesh
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
+             "this_and_that_vdm_tpu.")) or m == "this_and_that_vdm_tpu")
+print(len(parallel.__all__), bad, sorted(n for n in ("make_mesh", "host_replicated",
+      "make_serving_mesh", "shard_params", "shard_batch", "global_batch", "shard_leading",
+      "replicate", "replicate_to_mesh", "distributed_init", "is_main_process")
+      if not callable(getattr(parallel, n, None))))
+"""
+
+
+def test_parallel_imports_no_jax_and_has_the_jax_packages_names():
+    """``parallel`` alone pulls in no jax, flax or JAX-package module, and
+    has a counterpart of each of the eleven names of the JAX package's."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    n, rest = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 11 and rest == "[] []", res.stdout
+
+
 def test_training_tools_are_among_the_modules_imported():
     """The modules of the training path and its tools are walked (and so
     imported with JAX left out) by the check above."""
@@ -56,7 +80,8 @@ def test_training_tools_are_among_the_modules_imported():
                  "curation.select_frames", "curation.trajectory", "curation.flow_eval",
                  "models.xmem", "models.flowformer", "curation.xmem_tracker",
                  "curation.tracking", "curation.painters", "curation.tools",
-                 "training.xmem_trainer", "data.native_loader", "utils.host_native"):
+                 "training.xmem_trainer", "data.native_loader", "utils.host_native",
+                 "parallel", "parallel.mesh"):
         assert f"{pkg.__name__}.{name}" in names, name
 
 

@@ -1,21 +1,27 @@
-"""This&That demo, one-shot from the command line (the port's counterpart
-of the repository's root ``app.py``): one image, up to two gesture points
-("this" red, "that" green), a prompt -> a 14-frame clip written as mp4 (GIF
-where no mp4 writer is installed).
+"""This&That demo (the port's counterpart of the repository's root
+``app.py``): one image, up to two gesture points ("this" red, "that"
+green), a prompt -> a 14-frame clip written as mp4 (GIF where no mp4 writer
+is installed).
+
+Without ``--image``: the gradio UI (``launch_gradio``), a resident
+pipeline behind ``serving.VideoGenServer``: upload an image, click up to two
+points, type a prompt, get an mp4.  With ``--image``: one shot from the
+command line.
 
     python -m this_and_that_vdm_tpu_torch.app --pretrained WEIGHTS \\
-        --image img.jpg --points 120,80 200,160 \\
-        --prompt "put the cup on the plate" --out demo.mp4 [--device cpu]
+        [--image img.jpg --points 120,80 200,160 \\
+         --prompt "put the cup on the plate" --out demo.mp4] [--device cpu]
 
 Gesture frame indices are ``[4, 10]`` for two points (reference app.py:159).
-The gradio UI of the root ``app.py`` is not part of the port: without
-``--image`` the command stops with an error.  Runs on the CUDA card unless
-``--device cpu``.
+The UI needs gradio; without it, and without ``--image``, the command
+stops with an error.  Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -61,6 +67,78 @@ def run_generation(pipe, tokenize, image_rgb_uint8, points, prompt, seed=42,
     return frames[0]
 
 
+POINT_COLORS = [(255, 0, 0), (0, 255, 0)]  # display RGB: this = red, that = green
+
+
+def draw_points(img, points, radius: int = 8):
+    """A copy of ``img`` with a filled disk at each (x, y) point (the
+    reference UI's ``cv2.circle(..., -1)``)."""
+    vis = img.copy()
+    yy, xx = np.mgrid[:img.shape[0], :img.shape[1]]
+    for i, (x, y) in enumerate(points):
+        disk = (xx - int(x)) ** 2 + (yy - int(y)) ** 2 <= radius * radius
+        vis[disk] = POINT_COLORS[min(i, 1)]
+    return vis
+
+
+def launch_gradio(pretrained=None, random_weights=False, dtype="bf16", device="cuda"):
+    """The gradio Blocks UI over a resident pipeline: concurrent users with
+    the same settings share one pipeline call (``serving.VideoGenServer``)."""
+    import gradio as gr
+
+    from .serving import VideoGenServer
+    from .utils import video_io
+
+    pipe, tokenize = build_pipeline(pretrained, random_weights, dtype, device)
+    server = VideoGenServer(pipe, max_batch=4, max_delay_s=0.25, num_frames=FRAMES,
+                            **SAMPLING_DEFAULTS)
+
+    def on_select(img, points, evt):
+        points = ((points or []) + [tuple(evt.index)])[:2]
+        return draw_points(img, points), points
+
+    # gradio hands the event to the parameter annotated with its type
+    on_select.__annotations__["evt"] = gr.SelectData
+
+    def on_clear(img):
+        return img, []
+
+    def on_run(orig, points, prompt, seed, steps):
+        if orig is None:
+            raise gr.Error("upload an image first")
+        if not points:
+            raise gr.Error("click at least one gesture point")
+        img, cond, ids = prepare_inputs(tokenize, orig, points, prompt)
+        frames = server.submit(img, condition=cond, prompt_ids=ids, seed=int(seed),
+                               num_inference_steps=int(steps)).result()
+        # a file of its own a run: concurrent users must not overwrite each
+        # other's clip while gradio serves it
+        fd, out_path = tempfile.mkstemp(prefix="demo_output_", suffix=".mp4")
+        os.close(fd)
+        return video_io.export_mp4(frames, out_path)
+
+    with gr.Blocks(title="This&That") as demo:
+        gr.Markdown("## This&That: language-gesture video generation")
+        points = gr.State([])
+        orig = gr.State(None)
+        with gr.Row():
+            image = gr.Image(label="first frame (click up to 2 points)")
+            video = gr.Video(label="generated clip")
+        prompt = gr.Textbox(label="prompt", value="put this to there")
+        with gr.Row():
+            seed = gr.Number(value=42, label="seed")
+            steps = gr.Number(value=25, label="steps")
+            clear = gr.Button("clear points")
+            run = gr.Button("run", variant="primary")
+        image.upload(lambda im: (im, im, []), [image], [image, orig, points])
+        image.select(on_select, [orig, points], [image, points])
+        clear.click(on_clear, [orig], [image, points])
+        run.click(on_run, [orig, points, prompt, seed, steps], [video])
+    # concurrency, so that simultaneous users reach the batcher together
+    demo.queue(default_concurrency_limit=4).launch()
+    return server
+
+
 def main(argv=None):
     from .utils import video_io
 
@@ -76,10 +154,14 @@ def main(argv=None):
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    if args.image is None:
-        p.error("the port has no gradio UI; use the CLI one-shot mode (--image ...)")
     if not args.random_weights and not args.pretrained:
         p.error("either --pretrained <dir> or --random-weights is required")
+    if args.image is None:
+        try:
+            import gradio  # noqa: F401
+        except ImportError:
+            p.error("gradio is not installed; use the CLI one-shot mode (--image ...)")
+        return launch_gradio(args.pretrained, args.random_weights, args.dtype, args.device)
 
     pipe, tokenize = build_pipeline(args.pretrained, args.random_weights, args.dtype,
                                     args.device)

@@ -262,15 +262,19 @@ extern "C" int ttv_adam8bit_multi(const void* leaves, int n_leaves, int total_bl
                                   void* mq2, void* ms2, void* nq2, void* ns2, const float* hp,
                                   int max_grid, void* stream) {
   if (n_leaves <= 0 || total_blocks <= 0 || max_grid <= 0) return (int)cudaErrorInvalidValue;
-  static int wave = 0;  // thread blocks resident at once on the card
+  static ttv::PerDevice waves;  // thread blocks resident at once, per device
+  int dev = 0;
+  cudaError_t e = ttv::current_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int wave = waves.v[dev].load(std::memory_order_relaxed);
   if (!wave) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, adam8bit_multi, THREADS, 0);
     if (e != cudaSuccess) return (int)e;
     wave = sms * per_sm;
+    waves.v[dev].store(wave, std::memory_order_relaxed);
   }
   Adam8Params p;
   memcpy(&p, hp, sizeof(p));

@@ -4,7 +4,41 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace ttv {
+
+// ------------------------------------------------------ per-device state
+// A kernel's function attributes and the occupancy it reaches belong to one
+// device.  A launcher keeps what it has set or measured in a table indexed
+// by the ordinal of the calling thread's current device, which
+// ops/_native.launch makes the device of the tensors.  Two threads may both
+// set an entry the first time; the attribute they set is the same.
+constexpr int kMaxDevices = 64;
+
+struct PerDevice {
+  std::atomic<int> v[kMaxDevices];  // zero at first: declare it static
+};
+
+inline cudaError_t current_device(int* dev) {
+  const cudaError_t e = cudaGetDevice(dev);
+  if (e == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices)) return cudaErrorInvalidDevice;
+  return e;
+}
+
+// Let kernel ``fn`` use ``bytes`` of dynamic shared memory on the current
+// device; ``allowed`` is the launcher's table of what each device allows.
+inline cudaError_t allow_smem(const void* fn, int bytes, PerDevice& allowed) {
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess || allowed.v[dev].load(std::memory_order_relaxed) >= bytes) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  int cur = allowed.v[dev].load(std::memory_order_relaxed);
+  while (cur < bytes && !allowed.v[dev].compare_exchange_weak(cur, bytes)) {
+  }
+  return cudaSuccess;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);

@@ -73,6 +73,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -290,8 +291,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if (!err) err = hop::make_map(&mk, k, 4, dims, strides, kvbox);
   if (!err) err = hop::make_map(&mv, v, 4, dims, strides, kvbox);
   if (err) return err;
-  static const cudaError_t e = cudaFuncSetAttribute(
-      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  static ttv::PerDevice allowed;
+  const cudaError_t e =
+      ttv::allow_smem(reinterpret_cast<const void*>(flash_bf16<D>), T::SMEM, allowed);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_bf16<D><<<grid, THREADS_BF16, T::SMEM, st>>>(mq, mk, mv, static_cast<bf16*>(o), S, H,
@@ -499,8 +501,9 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                long long sb, long long ss, float scale, cudaStream_t st) {
   constexpr int smem = F32Tiles<D>::SMEM;
-  static const cudaError_t e = cudaFuncSetAttribute(
-      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static ttv::PerDevice allowed;
+  const cudaError_t e =
+      ttv::allow_smem(reinterpret_cast<const void*>(flash_f32<D>), smem, allowed);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + FBQ - 1) / FBQ, B * H);
   flash_f32<D><<<grid, FTHREADS, smem, st>>>(static_cast<const float*>(q),

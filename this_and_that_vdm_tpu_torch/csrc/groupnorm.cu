@@ -381,14 +381,10 @@ __global__ void __launch_bounds__(THREADS, RESIDENT ? 1 : 2) gn_coop(const GnArg
 
 template <typename T, bool RESIDENT, int KP>
 int launch(const GnArgs& a, int grid, int smem, cudaStream_t st) {
-  static int attr_bytes = 0;  // dynamic shared memory already allowed
+  static ttv::PerDevice allowed;  // dynamic shared memory each device allows
   auto fn = gn_coop<T, RESIDENT, KP>;
-  if (smem > attr_bytes) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_bytes = smem;
-  }
+  const cudaError_t ea = ttv::allow_smem(reinterpret_cast<const void*>(fn), smem, allowed);
+  if (ea != cudaSuccess) return (int)ea;
   void* args[] = {const_cast<GnArgs*>(&a)};
   // refused (cudaErrorCooperativeLaunchTooLarge) unless every block is resident
   const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),

@@ -81,6 +81,7 @@
 // the qkv site is bound by operations.
 #include <stdint.h>
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -377,8 +378,9 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, const void* 
   int err = hop::make_map(&mx, x, 2, xdims, stride, xbox);
   if (!err) err = hop::make_map(&mw, w, 2, wdims, stride, wbox, T::KW == 32);
   if (err) return err;
-  static const cudaError_t e = cudaFuncSetAttribute(
-      ln_matmul_bf16<WM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static ttv::PerDevice allowed;
+  const cudaError_t e = ttv::allow_smem(reinterpret_cast<const void*>(ln_matmul_bf16<WM>),
+                                        kSmemLimit, allowed);
   if (e != cudaSuccess) return (int)e;
   const int tiles_n = (N + T::BN - 1) / T::BN;
   const int tiles = (R + T::BM - 1) / T::BM * tiles_n;
@@ -612,8 +614,9 @@ int launch_f32(const void* x, const void* gamma, const void* beta, const void* w
   if ((size_t)smem < f32_smem<Cf>(C) || smem > kSmemLimit || grid < 1 ||
       (Cf::STREAM && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t e = cudaFuncSetAttribute(
-      ln_matmul_f32<Cf>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static ttv::PerDevice allowed;
+  const cudaError_t e = ttv::allow_smem(reinterpret_cast<const void*>(ln_matmul_f32<Cf>),
+                                        kSmemLimit, allowed);
   if (e != cudaSuccess) return (int)e;
   const float* rows = static_cast<const float*>(x);
   if (Cf::STREAM) {

@@ -8,10 +8,16 @@ encoder states, broadcast hw-major as the reference does (row ``r`` of the
 folded batch consumes context ``r % n``), computed per distinct context by
 ``GroupedCrossAttention``.  Every LayerNorm feeds its projection through
 ``ops.ln_matmul`` (K3).
+
+``context_clips`` (the independent clips of a folded batch) may instead be
+a :class:`CfgBranch`: the rows of one CFG branch run apart from the others
+(the serving mesh's ``cfg`` axis), with the encoder states of every branch,
+so that each row still meets the context the whole batch gives it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -44,6 +50,26 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(x, ln=self.norm3)
 
 
+@dataclasses.dataclass(frozen=True)
+class CfgBranch:
+    """The rows of CFG branch ``index`` of ``count`` of a folded batch of
+    ``clips`` clips a branch, run as a batch of their own; ``states``: the
+    encoder states of the whole folded batch, ``[count * clips, S, D]``."""
+
+    clips: int
+    index: int
+    count: int
+    states: torch.Tensor
+
+    def contexts(self, rows: int) -> np.ndarray:
+        """The context of each of the branch's ``rows`` (clip-major, ``s``
+        spatial rows a clip) in the whole batch: the map of
+        ``_clip_exact_order``, ``((j * s + p) % count) * clips + i``."""
+        s = rows // self.clips
+        r = np.arange(rows)
+        return ((self.index * s + r % s) % self.count) * self.clips + r // s
+
+
 def _clip_exact_order(r: int, n: int, clips: int):
     """Row permutation for the per-clip exact context mapping (see the JAX
     ``_clip_exact_order``): rows grouped context-major, and its inverse."""
@@ -74,7 +100,9 @@ class GroupedCrossAttention(nn.Module):
         self.to_v = nn.Linear(cross_attention_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
 
-    def forward(self, x_rows, ctx, ln: LayerNorm, clips: int = 1):
+    def forward(self, x_rows, ctx, ln: LayerNorm, clips=1):
+        if isinstance(clips, CfgBranch):
+            return self._branch_forward(x_rows, ctx, ln, clips)
         r, f, c = x_rows.shape
         n = ctx.shape[0]
         hd, dh = self.heads, self.dim_head
@@ -96,6 +124,26 @@ class GroupedCrossAttention(nn.Module):
         else:
             out = out.reshape(r, f, hd * dh)[inv.to(out.device)]
         return self.to_out[0](out)
+
+    def _branch_forward(self, x_rows, ctx, ln: LayerNorm, br: CfgBranch):
+        """The rows of one CFG branch against the whole batch's contexts
+        (``br.states``): each context's rows attend to it in turn."""
+        r, f, c = x_rows.shape
+        hd, dh = self.heads, self.dim_head
+        q = ln_matmul(x_rows, ln.weight, ln.bias, self.to_q.weight, eps=ln.eps)
+        q = q.reshape(r, f, hd, dh)
+        states = br.states.to(ctx.dtype)
+        n = states.shape[0]
+        k = self.to_k(states).reshape(n, -1, hd, dh)
+        v = self.to_v(states).reshape(n, -1, hd, dh)
+        which = br.contexts(r)
+        out = torch.empty((r, f, hd, dh), dtype=v.dtype, device=q.device)
+        for cidx in np.unique(which):
+            sel = torch.from_numpy(np.flatnonzero(which == cidx)).to(q.device)
+            logits = torch.einsum("mfhd,khd->mhfk", q[sel].float(), k[cidx].float()) * dh ** -0.5
+            probs = torch.softmax(logits, dim=-1).to(v.dtype)
+            out[sel] = torch.einsum("mhfk,khd->mfhd", probs, v[cidx])
+        return self.to_out[0](out.reshape(r, f, hd * dh))
 
 
 class TemporalBasicTransformerBlock(nn.Module):

@@ -95,17 +95,19 @@ def library_path():
     return LIB.path
 
 
-def launch(name: str, *args) -> None:
-    """Call launcher ``name``; raise on a nonzero ``cudaGetLastError`` (or,
-    from 1000 up, a failed ``cuTensorMapEncodeTiled``: 1000 + its CUresult)."""
-    err = getattr(library(), name)(*args)
+def launch(name: str, on, *args) -> None:
+    """Call launcher ``name`` on the device of tensor ``on``, with the
+    arguments and then that device's current stream: the device is made the
+    thread's current one for the call, so the launcher's per-device state
+    and the launch itself belong to the device that owns the tensors.  Raise
+    on a nonzero ``cudaGetLastError`` (or, from 1000 up, a failed
+    ``cuTensorMapEncodeTiled``: 1000 + its CUresult)."""
+    import torch
+
+    fn = getattr(library(), name)
+    with torch.cuda.device(on.device):
+        err = fn(*args, torch.cuda.current_stream(on.device).cuda_stream)
     if err >= 1000:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed (CUresult {err - 1000})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def stream_ptr(t) -> int:
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream

@@ -98,6 +98,22 @@ def leaf_blocks(numels: Sequence[int]) -> Tuple[List[int], int]:
     return first, total
 
 
+def leaf_rows(numels: Sequence[int], lo: int, hi: int) -> List[Tuple[int, int, int]]:
+    """The part of each leaf in blocks ``[lo, hi)`` of the kernel's
+    numbering, as ``(leaf, first element, end element)``, leaves with
+    nothing there left out.  A part starts on a block boundary of its leaf,
+    so its blocks are blocks of the whole leaf: K4 over the parts (each as a
+    leaf of its own, with those blocks' codes and scales) computes those
+    rows bit for bit as K4 over the whole leaves does."""
+    first, _ = leaf_blocks(numels)
+    out = []
+    for i, (n, f) in enumerate(zip(numels, first)):
+        b0, b1 = max(lo, f), min(hi, f - (-n // BLOCK))
+        if b0 < b1:
+            out.append((i, (b0 - f) * BLOCK, min(n, (b1 - f) * BLOCK)))
+    return out
+
+
 def leaf_table(gs, mqs, mss, nqs, nss, steps) -> np.ndarray:
     """The kernel's table, one row of 8 int64 a leaf (``Leaf`` in
     ``csrc/adam8bit.cu``): the addresses of g, mq, ms, nq, ns, then numel,
@@ -158,9 +174,9 @@ def _launch_leaves(gs, mqs, mss, nqs, nss, bc, b1, b2, eps, out):
     nq2 = torch.empty((total * BLOCK,), device=dev, dtype=torch.uint8)
     ms2 = torch.empty((total,), device=dev, dtype=torch.float32)
     ns2 = torch.empty((total,), device=dev, dtype=torch.float32)
-    _native.launch("ttv_adam8bit_multi", table.data_ptr(), len(gs), total, mq2.data_ptr(),
+    _native.launch("ttv_adam8bit_multi", mq2, table.data_ptr(), len(gs), total, mq2.data_ptr(),
                    ms2.data_ptr(), nq2.data_ptr(), ns2.data_ptr(), _hyper(bc, b1, b2, eps),
-                   -(-total // 8), _native.stream_ptr(mq2))
+                   -(-total // 8))
     launches += 1
     # per-leaf views of the new moments
     nbs = [-(-n // BLOCK) for n in numels]
@@ -185,9 +201,39 @@ def adam8bit_leaves(gs, mqs, mss, nqs, nss, bc: Tuple[float, float], b1: float =
         return _plain_leaves(gs, mqs, mss, nqs, nss, bc, b1, b2, eps, out)
     if gs[0].device.type != "cuda":
         raise ValueError(f"adam8bit_leaves: unsupported device {gs[0].device}")
-    if not sum(g.numel() for g in gs):
-        raise ValueError("adam8bit_leaves: every leaf is empty")
-    return _launch_leaves(gs, mqs, mss, nqs, nss, bc, b1, b2, eps, out)
+    # empty leaves (a leaf outside a rank's rows) take no part in the launch
+    keep = [i for i, g in enumerate(gs) if g.numel()]
+    res = tuple([None] * len(gs) for _ in range(5))
+    for i in set(range(len(gs))) - set(keep):
+        for lst, t in zip(res, (gs[i] if out is None else out[i], mqs[i], mss[i], nqs[i],
+                                nss[i])):
+            lst[i] = t.reshape(-1).clone()
+    if keep:
+        pick = lambda ts: [ts[i] for i in keep]  # noqa: E731
+        got = _launch_leaves(pick(gs), pick(mqs), pick(mss), pick(nqs), pick(nss), bc, b1,
+                             b2, eps, None if out is None else pick(out))
+        for lst, ts in zip(res, got):
+            for i, t in zip(keep, ts):
+                lst[i] = t
+    return res
+
+
+def adam8bit_rows(gs, mqs, mss, nqs, nss, bc: Tuple[float, float], rows: Tuple[int, int],
+                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One update of blocks ``[lo, hi) = rows`` of a tree of whole leaves
+    (the arguments of :func:`adam8bit_leaves`): the leaves are cut to their
+    parts in those rows (:func:`leaf_rows`) and updated in one call.
+    Returns ``(parts, five lists)``: ``parts`` the ``(leaf, first, end)`` of
+    each piece, then the step, mq', ms', nq', ns' of each."""
+    parts = leaf_rows([g.numel() for g in gs], *rows)
+    cut = ([], [], [], [], [])
+    for i, e0, e1 in parts:
+        blocks = slice(e0 // BLOCK, -(-e1 // BLOCK))
+        codes = slice(blocks.start * BLOCK, blocks.stop * BLOCK)
+        for lst, t in zip(cut, (gs[i].reshape(-1)[e0:e1], mqs[i].reshape(-1)[codes],
+                                mss[i][blocks], nqs[i].reshape(-1)[codes], nss[i][blocks])):
+            lst.append(t)
+    return parts, adam8bit_leaves(*cut, bc, b1, b2, eps)
 
 
 def adam8bit_update(g, mq, ms, nq, ns, bc: Tuple[float, float], b1: float = 0.9,

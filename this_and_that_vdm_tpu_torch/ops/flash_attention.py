@@ -89,9 +89,9 @@ def _launch(q, k, v, scale: float):
     b, s, h, d = q.shape
     sb, ss = _seq_strides(q)
     out = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
-    _native.launch("ttv_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _native.launch("ttv_flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), b, s, h, d, sb, ss, float(scale),
-                   int(q.dtype == torch.bfloat16), _native.stream_ptr(q))
+                   int(q.dtype == torch.bfloat16))
     launches += 1
     return out
 

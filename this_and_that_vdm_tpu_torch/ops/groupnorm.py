@@ -122,10 +122,10 @@ def _launch(x, weight, bias, num_groups, eps, with_silu):
     p = plan(n, s, c, num_groups, x.element_size(), _sm_count(x.device.index))
     part = torch.empty((p.grid * p.kmax * num_groups * 2,), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
-    _native.launch("ttv_groupnorm", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+    _native.launch("ttv_groupnorm", x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                    y.data_ptr(), part.data_ptr(), n * s, s, c, num_groups, float(eps),
                    int(with_silu), p.rows_per_block, p.kmax, p.grid, int(p.resident), p.smem,
-                   int(x.dtype == torch.bfloat16), _native.stream_ptr(x))
+                   int(x.dtype == torch.bfloat16))
     launches += 1
     return y
 

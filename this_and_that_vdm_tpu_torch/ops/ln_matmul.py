@@ -157,10 +157,10 @@ def _launch(x2, scale, bias, w, wb, eps):
         tiles = (int(p.stream), 0, p.grid, p.smem)
         if p.stream:  # the normalised rows, written once and streamed
             scratch = torch.empty_like(x2)
-    _native.launch("ttv_ln_matmul", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+    _native.launch("ttv_ln_matmul", x2, x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                    w.data_ptr(), 0 if wb is None else wb.data_ptr(), out.data_ptr(),
                    0 if scratch is None else scratch.data_ptr(),
-                   r, c, n, float(eps), int(is_bf16), *tiles, _native.stream_ptr(x2))
+                   r, c, n, float(eps), int(is_bf16), *tiles)
     launches += 1
     return out
 

@@ -6,7 +6,9 @@ of the (constant) gesture raster is hoisted out of the loop, once per call.
 Supports ``controlnet_conditioning_scale``, ``control_guidance_start/end``
 step gating, ``guess_mode`` (ControlNet on the conditional half only, with
 zero residuals on the other branches) and the 3-way ``use_instructpix2pix``
-CFG.
+CFG.  On a serving mesh (``place_on_mesh``, see ``pipelines/svd.py``) each
+CFG branch runs the ControlNet and the UNet on its own device; in guess mode
+only the conditional branch's device runs the ControlNet.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ import torch
 
 from ..schedulers import make_svd_schedule
 from . import common
-from .svd import StableVideoDiffusionPipeline, _Stage
+from .svd import StableVideoDiffusionPipeline, _Stage, cfg_parts
 
 
 class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
+    _MODULES = StableVideoDiffusionPipeline._MODULES + ("controlnet",)
+
     def __init__(self, unet, vae, image_encoder, controlnet, text_encoder=None):
         super().__init__(unet, vae, image_encoder, text_encoder)
         self.controlnet = controlnet
@@ -34,7 +38,13 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
 
     def denoise(self, latents, states_cfg, img_lat_cfg, cond_latents, add_ids, guidance,
                 num_steps: int, cond_scale: float, ctrl_start: float, ctrl_end: float,
-                guess_mode: bool, ip2p: bool, image_guidance_scale: float):
+                guess_mode: bool, ip2p: bool, image_guidance_scale: float, branches=None):
+        """The Euler loop; ``branches``: the replicas of the CFG branches
+        (one a branch) on a serving mesh, else None."""
+        if branches is not None and len(branches) == (3 if ip2p else 2):
+            return self._denoise_split(branches, latents, states_cfg, img_lat_cfg, cond_latents,
+                                       add_ids, guidance, num_steps, cond_scale, ctrl_start,
+                                       ctrl_end, guess_mode, ip2p, image_guidance_scale)
         dev = latents.device
         sched = make_svd_schedule(num_steps)
         mult = 3 if ip2p else 2
@@ -85,6 +95,51 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
             x = sched.step(pred, i, x)
         return x
 
+    def _denoise_split(self, branches, latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
+                       guidance, num_steps, cond_scale, ctrl_start, ctrl_end, guess_mode, ip2p,
+                       image_guidance_scale):
+        """:meth:`denoise` with CFG branch ``j`` on ``branches[j]``: the
+        predictions meet on this (the first) device for the combine."""
+        dev = latents.device
+        sched = make_svd_schedule(num_steps)
+        b, f = latents.shape[:2]
+        keep = [1.0 - float(i / num_steps < ctrl_start or (i + 1) / num_steps > ctrl_end)
+                for i in range(num_steps)]
+        cn_cond = cond_latents[None].repeat(b, 1, 1, 1, 1) if cond_latents.dim() == 4 \
+            else cond_latents
+        img_lat = img_lat_cfg[:, None].expand(-1, f, -1, -1, -1)
+        parts = cfg_parts(branches, b, dict(states=states_cfg, img_lat=img_lat, add_ids=add_ids))
+        # guess mode: the ControlNet on the conditional branch alone (last in
+        # the standard layout, first in ip2p), over its own rows
+        cn_branch = 0 if ip2p else len(parts) - 1
+        x = latents * sched.init_noise_sigma
+        for i in range(num_steps):
+            scale = cond_scale * keep[i]
+            preds = []
+            for j, (pipe, rows, ctx) in enumerate(parts):
+                d = pipe.device
+                inp = torch.cat([sched.scale_model_input(x.to(d), i), rows["img_lat"]], dim=-1)
+                t = torch.tensor(sched.timesteps[i], device=d)
+                res = mid = None
+                if not guess_mode or j == cn_branch:
+                    res, mid = pipe.controlnet(inp, t, rows["states"], rows["add_ids"],
+                                               cn_cond.to(d), conditioning_scale=scale,
+                                               guess_mode=guess_mode,
+                                               context_clips=b if guess_mode else ctx)
+                preds.append(pipe.unet(inp, t, rows["states"], rows["add_ids"],
+                                       down_block_additional_residuals=res,
+                                       mid_block_additional_residual=mid, context_clips=ctx))
+            preds = [q.to(dev) for q in preds]
+            if ip2p:
+                p_first, p_cond, p_uncond = preds
+                pred = (p_uncond + guidance * (p_cond - p_uncond)
+                        + image_guidance_scale * (p_cond - p_first))
+            else:
+                p_uncond, p_cond = preds
+                pred = p_uncond + guidance * (p_cond - p_uncond)
+            x = sched.step(pred, i, x)
+        return x
+
     @torch.no_grad()
     def __call__(self, image, condition_img, prompt_ids=None, num_frames: int = 14,
                  num_inference_steps: int = 25, min_guidance_scale: float = 1.0,
@@ -102,23 +157,46 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
         decode_chunk_size = decode_chunk_size or num_frames
         image, image_noise, latents = self._draws(image, generator, image_noise, latents,
                                                   num_frames)
-        b = image.shape[0]
         ids = None if prompt_ids is None else torch.as_tensor(prompt_ids, device=dev)
-        mode = "ip2p" if use_instructpix2pix else "standard"
+        cond = torch.as_tensor(condition_img, device=dev).float()
+        per_clip = dict(image=image, image_noise=image_noise, latents=latents)
+        shared = {}
+        if ids is not None:
+            per_clip["ids"] = ids
+        # per-clip gestures [B, F, H, W, 3] split with the clips; the shared
+        # [F, H, W, 3] raster goes to every part
+        (per_clip if cond.dim() == 5 else shared)["cond"] = cond
+
+        def run(pipe, branches, image, image_noise, latents, cond, ids=None, trace=None):
+            return pipe._generate(
+                branches, image, ids, image_noise, latents, cond, num_frames,
+                num_inference_steps, min_guidance_scale, max_guidance_scale, fps,
+                motion_bucket_id, noise_aug_strength, float(controlnet_conditioning_scale),
+                float(control_guidance_start), float(control_guidance_end), guess_mode,
+                use_instructpix2pix, float(image_guidance_scale), trace)
+
+        return self._serve(run, per_clip, shared, output_type, decode_chunk_size, trace)
+
+    def _generate(self, branches, image, ids, image_noise, latents, cond, num_frames, steps,
+                  min_guidance_scale, max_guidance_scale, fps, motion_bucket_id,
+                  noise_aug_strength, cond_scale, ctrl_start, ctrl_end, guess_mode, ip2p,
+                  image_guidance_scale, trace):
+        """Encode and denoise the clips of one part -> final latents."""
+        dev = self.device
+        b = image.shape[0]
+        mode = "ip2p" if ip2p else "standard"
         with _Stage(trace, "cond_encode", dev):
             states_cfg, img_lat_cfg = self.encode_conditioning(
                 image, ids, noise_aug_strength * image_noise, mode)
         with _Stage(trace, "gesture_encode", dev):
-            cond_latents = self.encode_condition_img(condition_img)
-        mult = 3 if use_instructpix2pix else 2
+            cond_latents = self.encode_condition_img(cond)
+        mult = 3 if ip2p else 2
         add_ids = common.get_add_time_ids(fps - 1, motion_bucket_id, noise_aug_strength,
                                           b, mult, dev)
         guidance = common.guidance_linspace(min_guidance_scale, max_guidance_scale,
                                             num_frames, b, dev)
         with _Stage(trace, "denoise", dev):
             x = self.denoise(latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
-                             guidance, num_inference_steps,
-                             float(controlnet_conditioning_scale),
-                             float(control_guidance_start), float(control_guidance_end),
-                             guess_mode, use_instructpix2pix, float(image_guidance_scale))
-        return self._finish(x, output_type, decode_chunk_size, trace)
+                             guidance, steps, cond_scale, ctrl_start, ctrl_end, guess_mode,
+                             ip2p, image_guidance_scale, branches)
+        return x

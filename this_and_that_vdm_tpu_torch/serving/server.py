@@ -16,11 +16,14 @@ A resident pipeline serves concurrent requests:
   temporal context per clip);
 * callers get ``concurrent.futures.Future`` objects: submit from any thread.
   A result's future carries ``timing``: the request's queue wait and the
-  size of the batch that served it.
+  size of the batch that served it;
+* on a serving mesh (``mesh=parallel.make_serving_mesh(devices, cfg=2)``)
+  the pipeline is placed on it once: a batch's clips split over ``clip``,
+  each clip's CFG branches over ``cfg``.
 
 Usage::
 
-    server = VideoGenServer(pipe, output_type="uint8")
+    server = VideoGenServer(pipe, output_type="uint8")  # or mesh=...
     fut = server.submit(image, condition=raster, prompt_ids=ids, seed=7)
     frames = fut.result()          # [F, H, W, 3]
     server.close()
@@ -57,15 +60,19 @@ class VideoGenServer:
 
     ``pipe``: a ``StableVideoDiffusionPipeline`` or
     ``StableVideoDiffusionControlNetPipeline``; the server runs on its
-    device.  ``max_batch``: clips per invocation (1: one clip a call).
-    ``max_delay_s``: how long the batcher waits for same-bucket followers
-    once a request is in hand.  ``default_sampling``: pipeline keyword
-    arguments of every request, which ``submit`` may override.
+    device.  ``mesh``: an optional serving mesh the pipeline is placed on
+    at construction.  ``max_batch``: clips per invocation; default (None)
+    the mesh's ``clip`` extent, 1 without a mesh.  ``max_delay_s``: how long
+    the batcher waits for same-bucket followers once a request is in hand.
+    ``default_sampling``: pipeline keyword arguments of every request, which
+    ``submit`` may override.
     """
 
-    def __init__(self, pipe, max_batch: int = 1, max_delay_s: float = 0.05,
-                 **default_sampling):
-        self.pipe = pipe
+    def __init__(self, pipe, mesh=None, max_batch: Optional[int] = None,
+                 max_delay_s: float = 0.05, **default_sampling):
+        self.pipe = pipe.place_on_mesh(mesh) if mesh is not None else pipe
+        if max_batch is None:
+            max_batch = mesh.shape.get("clip", 1) if mesh is not None else 1
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_s)
         self.default_sampling = default_sampling
@@ -154,6 +161,9 @@ class VideoGenServer:
         return batch
 
     def _run(self):
+        dev = self.pipe.device
+        if dev.type == "cuda":  # the worker launches on the pipeline's card
+            torch.cuda.set_device(dev)
         while True:
             batch = self._take_batch()
             if batch is None:

@@ -4,16 +4,26 @@ A checkpoint is ``<output_dir>/checkpoint-<step>/state.pt``, one
 ``torch.save`` of the trainable parameters, the optimizer state and the
 step (the reference's ``accelerator.save_state``); ``resume latest`` picks
 the newest step and ``checkpoints_total_limit`` rotates old ones away.
+
+On a mesh of ranks (a state with ``rows``) both are collective: a save
+gathers the optimizer state into its one-rank form, rank 0 writes, and
+every rank waits for the file; a restore reads the file on every rank and
+keeps the rank's rows.  The file is the one-rank file, so a run saved at
+one world size resumes at any other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import shutil
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from .. import parallel
 
 _FILE = "state.pt"
 
@@ -31,17 +41,22 @@ def _ckpt_dirs(output_dir: str) -> List[Tuple[int, str]]:
 
 def save_checkpoint(output_dir: str, step: int, state, total_limit: Optional[int] = 15) -> str:
     """Write ``checkpoint-<step>`` for a ``trainer.TrainState``, then keep
-    only the newest ``total_limit`` checkpoints."""
+    only the newest ``total_limit`` checkpoints (collective on a mesh)."""
     path = os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _FILE + ".tmp")
-    torch.save(dict(step=state.step, params={k: p.detach() for k, p in state.params.items()},
-                    opt_state=state.opt_state), tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
-    if total_limit:
-        existing = _ckpt_dirs(output_dir)
-        while len(existing) > total_limit:
-            shutil.rmtree(existing.pop(0)[1], ignore_errors=True)
+    opt_state = parallel.host_replicated(state.opt_state, state.rows)
+    if parallel.is_main_process():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, _FILE + ".tmp")
+        torch.save(dict(step=state.step,
+                        params={k: p.detach() for k, p in state.params.items()},
+                        opt_state=opt_state), tmp)
+        os.replace(tmp, os.path.join(path, _FILE))
+        if total_limit:
+            existing = _ckpt_dirs(output_dir)
+            while len(existing) > total_limit:
+                shutil.rmtree(existing.pop(0)[1], ignore_errors=True)
+    if state.rows is not None:
+        dist.barrier()
     return path
 
 
@@ -52,16 +67,19 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, state):
     """Load a checkpoint into ``state``: its parameters are overwritten in
-    place, the optimizer state lands on their device.  The file is one this
-    package wrote (it holds the optimizer's named tuples, so it is read with
-    ``weights_only=False``)."""
+    place, the optimizer state lands on their device (this rank's rows of
+    it, on a mesh).  The file is one this package wrote (it holds the
+    optimizer's named tuples, so it is read with ``weights_only=False``)."""
     params = state.params
     device = next(iter(params.values())).device if params else "cpu"
     saved = torch.load(os.path.join(path, _FILE), map_location=device, weights_only=False)
     with torch.no_grad():
         for k, p in params.items():
             p.copy_(saved["params"][k])
-    return type(state)(saved["step"], params, saved["opt_state"])
+    opt_state = saved["opt_state"]
+    if state.rows is not None:
+        opt_state = parallel.shard_state(opt_state, state.rows)
+    return dataclasses.replace(state, step=saved["step"], opt_state=opt_state)
 
 
 def checkpoint_step(path: str) -> int:

@@ -32,6 +32,7 @@ from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import adam8bit as k4
@@ -66,9 +67,15 @@ def apply_updates(params: Dict[str, torch.Tensor], updates: Dict[str, torch.Tens
         p.add_(updates[k].to(p.dtype))
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares (a device scalar)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tree.values()))
+def global_norm(tree: Dict[str, torch.Tensor], group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (a device scalar).
+    ``group``: the process group over which the leaves are split in pieces
+    (a rank's block rows under fsdp): the sums of squares are all-reduced
+    over it first."""
+    sq = sum(torch.sum(t.float() * t.float()) for t in tree.values())
+    if group is not None and tree:
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 # ----------------------------------------------------------------- schedules
@@ -114,9 +121,10 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, group=None) -> GradientTransformation:
+    """optax ``clip_by_global_norm``; ``group`` as in :func:`global_norm`."""
     def update(updates, state, params=None):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, group)
         trigger = g_norm < max_norm
         for k, t in updates.items():
             updates[k] = torch.where(trigger, t, (t / g_norm) * max_norm)

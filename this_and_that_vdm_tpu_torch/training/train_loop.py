@@ -4,20 +4,33 @@ Counterpart of ``this_and_that_vdm_tpu/training/train_loop.py``: YAML config
 in; the models from an HF-layout weight folder (``--pretrained``) or with
 seeded random weights at the config's widths; the Bridge datasets of
 ``data/bridge.py`` (or ``--synthetic N`` random clips) through the threaded
-``PrefetchLoader``; the train step of ``trainer.py`` on one device;
-checkpoints with rotation and ``resume_from_checkpoint: latest``;
-JSONL/TensorBoard metrics; validation renders every ``validation_step``
-(``training/validation.py``); an abort after 3 consecutive non-finite loss
-reads.  Every step prints the host seconds the loop waited for its batch.
+``PrefetchLoader``; the train step of ``trainer.py``; checkpoints with
+rotation and ``resume_from_checkpoint: latest``; JSONL/TensorBoard metrics;
+validation renders every ``validation_step`` (``training/validation.py``);
+an abort after 3 consecutive non-finite loss reads.  Every step prints the
+host seconds the loop waited for its batch.
+
+Several cards: one process (rank) per card over ``torch.distributed``
+(``parallel/mesh.py``), on a (dcn, dp, fsdp) mesh of the ranks.  A rank
+joins the process group when the launcher's environment says so
+(``torchrun``: ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``; rank r trains on ``cuda:LOCAL_RANK``), or with
+``--multihost`` / ``TTV_MULTIHOST=1``; ``--devices N`` starts N local ranks
+itself (this process is rank 0, ranks 1..N-1 are child processes; with
+``--device cpu`` they are gloo processes).  Each rank loads its stride of
+the batches (``train_batch_size`` clips a rank); the global batch is
+``train_batch_size x world``.  Rank 0 alone logs, prints and writes; the
+checkpoint is collective and its file is the one-rank file.
+``frozen_sharding: fsdp`` splits the frozen towers over fsdp with FSDP2.
 
 Usage:
     python -m this_and_that_vdm_tpu_torch.training.train_loop \
         --config config/train_image2video_gesturenet.yaml --mode vgl \
         [--pretrained WEIGHTS] [--synthetic N] [--max-steps N] \
-        [--device cuda|cpu] [--tiny | --nano]
+        [--device cuda|cpu] [--tiny | --nano] \
+        [--devices N] [--fsdp N] [--dcn N] [--multihost]
 
-Runs on the CUDA card unless ``--device cpu`` is given.  Not ported yet:
-the multi-device flags.
+Runs on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -26,12 +39,18 @@ import argparse
 import dataclasses
 import math
 import os
+import socket
+import subprocess
+import sys
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..data import bridge
 from ..models import cast_compute_dtype, init_weights
 from ..models.clip import CLIPTextModel, CLIPVisionModelWithProjection
@@ -193,9 +212,10 @@ def _tokenizer(cfg: dict):
     return lambda s: tok([s])[0]
 
 
-def _validate(args, cfg, dcfg, models, tokenize, output_dir, step):
+def _validate(args, cfg, dcfg, models, tokenize, output_dir, step, write=True):
     """Render the instances of ``validation_img_folder`` from the live
-    models (the reference's ``log_validation``)."""
+    models (the reference's ``log_validation``); ``write``: this rank writes
+    the files (rank 0)."""
     from ..pipelines import StableVideoDiffusionControlNetPipeline, StableVideoDiffusionPipeline
     from . import validation
 
@@ -210,18 +230,13 @@ def _validate(args, cfg, dcfg, models, tokenize, output_dir, step):
         pipe, cfg["validation_img_folder"], lambda s: np.asarray(tokenize(s)).reshape(1, -1),
         mode=args.mode, num_frames=dcfg.video_seq_length, height=dcfg.height,
         width=dcfg.width, num_inference_steps=int(cfg.get("num_inference_steps", 25)),
-        motion_bucket_id=_motion_or_default(cfg))
-    print(f"step {step}: rendered {len(out)} validation instances in "
-          f"{time.perf_counter() - t0:.3f} s")
+        motion_bucket_id=_motion_or_default(cfg), write=write)
+    if write:
+        print(f"step {step}: rendered {len(out)} validation instances in "
+              f"{time.perf_counter() - t0:.3f} s")
 
 
-def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
-    """Train; returns the final ``TrainState``.  ``on_step(step, state,
-    metrics, models)`` is called once before the first step (step 0, metrics
-    None) and after every step (metrics with the host seconds the loop
-    waited for the batch as ``data_wait_s``), for callers that inspect the
-    run; ``models`` holds the unet, controlnet (None in VL), vae,
-    image_encoder and text_encoder."""
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--mode", choices=["vl", "vgl"], default="vl")
@@ -233,11 +248,117 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
     p.add_argument("--pretrained", default=None,
                    help="dir with HF-layout subfolders (unet/, gesturenet/, vae/, ...)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="ranks the trainable state is split over (innermost mesh axis)")
+    p.add_argument("--dcn", type=int, default=0,
+                   help="outer data axis across hosts; 0 = auto (the launcher's hosts, "
+                        "WORLD_SIZE / LOCAL_WORLD_SIZE)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the launcher's process group (also when WORLD_SIZE is set, "
+                        "or TTV_MULTIHOST=1)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="start N local ranks (rank r on cuda:r, or gloo processes with "
+                        "--device cpu); this process is rank 0")
+    return p
 
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_RANK_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+             "LOCAL_WORLD_SIZE")
+
+
+def _start_local_ranks(argv: list, n: int):
+    """Ranks 1..n-1 as child processes of this module with ``argv``, and
+    the launcher environment of rank 0 set in this process.  -> (children,
+    the environment entries to restore)."""
+    saved = {k: os.environ.get(k) for k in _RANK_ENV}
+    common = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+                  LOCAL_WORLD_SIZE=str(n))
+    root = str(Path(__file__).resolve().parents[2])
+    children = []
+    for r in range(1, n):
+        env = dict(os.environ, **common, RANK=str(r), LOCAL_RANK=str(r))
+        env["PYTHONPATH"] = os.pathsep.join([root] + [x for x in [env.get("PYTHONPATH")] if x])
+        children.append(subprocess.Popen(
+            [sys.executable, "-m", "this_and_that_vdm_tpu_torch.training.train_loop"] + argv,
+            env=env))
+    os.environ.update(common, RANK="0", LOCAL_RANK="0")
+    return children, saved
+
+
+def _stop_local_ranks(children, saved, failed: bool, timeout: float = 600.0):
+    """Wait for the child ranks (kill them when rank 0 failed: they would
+    wait in a collective), restore the environment; raise on a failed child."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    bad = []
+    for c in children:
+        if failed:
+            c.kill()
+        try:
+            rc = c.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            c.kill()
+            rc = c.wait()
+        if rc and not failed:
+            bad.append(rc)
+    if bad:
+        raise RuntimeError(f"train_loop: {len(bad)} child rank(s) failed (exit codes {bad})")
+
+
+def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
+    """Train; returns the final ``TrainState``.  ``on_step(step, state,
+    metrics, models)`` is called once before the first step (step 0, metrics
+    None) and after every step (metrics with the host seconds the loop
+    waited for the batch as ``data_wait_s``), for callers that inspect the
+    run; ``models`` holds the unet, controlnet (None in VL), vae,
+    image_encoder and text_encoder.  With ``--devices N`` this process is
+    rank 0 (``on_step`` sees rank 0's state)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_loop: no CUDA device; pass --device cpu to train on the CPU")
+    if not args.devices or "WORLD_SIZE" in os.environ:
+        return _train(args, device, on_step)
+    children, saved = _start_local_ranks(argv, args.devices)
+    failed = True
+    try:
+        state = _train(args, device, on_step)
+        failed = False
+    finally:
+        _stop_local_ranks(children, saved, failed)
+    return state
+
+
+def _train(args, device: torch.device, on_step: Optional[Callable]):
+    if args.multihost:
+        os.environ.setdefault("TTV_MULTIHOST", "1")
+    ours = not dist.is_initialized()  # a caller's process group stays up
+    joined = parallel.distributed_init(device_type=device.type)
+    try:
+        return _train_ranked(args, device, on_step, joined)
+    finally:
+        if joined and ours:
+            dist.destroy_process_group()
+
+
+def _train_ranked(args, device: torch.device, on_step: Optional[Callable], joined: bool):
+    if joined and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    is_main = parallel.is_main_process()
+    say = print if is_main else (lambda *a, **k: None)
+    world = dist.get_world_size() if joined else 1
+    hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world)) if joined else 1
+    mesh = parallel.make_mesh(fsdp=args.fsdp, dcn=args.dcn or hosts)
 
     cfg = load_config(args.config)
     tcfg = train_config_from_yaml(cfg, args.mode)
@@ -245,9 +366,12 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
     output_dir = cfg.get("output_dir", "checkpoints/run")
     os.makedirs(output_dir, exist_ok=True)
     seed = int(cfg.get("seed", 42))
-    batch_size = int(cfg.get("train_batch_size", 1))
+    batch_size = int(cfg.get("train_batch_size", 1))  # a rank's
     num_iters = args.max_steps or int(cfg.get("num_train_iters", 100_000))
     scale = "nano" if args.nano else "tiny" if args.tiny else "full"
+    frozen_sharding = str(cfg.get("frozen_sharding", "replicated"))
+    if frozen_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"frozen_sharding: {frozen_sharding!r} is not replicated or fsdp")
 
     gen = torch.Generator(device=device).manual_seed(seed)
     fdtype = frozen_dtype_from_yaml(cfg)
@@ -259,18 +383,27 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
             cfg, args.mode, tiny=args.tiny, nano=args.nano, frozen_dtype=fdtype,
             device=device, generator=gen)
     model = unet if args.mode == "vl" else controlnet
-    tx = trainer.make_optimizer(tcfg, dict(model.named_parameters()))
-    state = trainer.init_train_state(model, tx)
+    parallel.replicate({k: p.detach() for k, p in model.named_parameters()}, mesh)
+    if frozen_sharding == "fsdp":
+        # the frozen towers split over fsdp (the VGL UNet with them); the
+        # trainable model stays whole
+        parallel.shard_frozen(modules["vae"], mesh, methods=("encode_mode", "decode"))
+        parallel.shard_frozen(modules["image_encoder"], mesh)
+        parallel.shard_frozen(modules["text_encoder"], mesh)
+        if args.mode == "vgl":
+            parallel.shard_frozen(unet, mesh)
+    tx = trainer.make_optimizer(tcfg, dict(model.named_parameters()), group=mesh.group("fsdp"))
+    state = trainer.init_train_state(model, tx, mesh)
     if args.mode == "vl":
-        step_fn = trainer.make_vl_train_step(unet, modules, tx, tcfg)
+        step_fn = trainer.make_vl_train_step(unet, modules, tx, tcfg, mesh=mesh)
     else:
-        step_fn = trainer.make_vgl_train_step(unet, controlnet, modules, tx, tcfg)
+        step_fn = trainer.make_vgl_train_step(unet, controlnet, modules, tx, tcfg, mesh=mesh)
 
     if cfg.get("resume_from_checkpoint") == "latest":
         latest = ckpt.latest_checkpoint(output_dir)
         if latest:
             state = ckpt.restore_checkpoint(latest, state)
-            print(f"resumed from {latest} at step {state.step}")
+            say(f"resumed from {latest} at step {state.step}")
 
     tokenize = None
     if args.synthetic:
@@ -279,12 +412,14 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
         tokenize = _tokenizer(cfg)
         ds_cls = bridge.VideoThisThatDataset if args.mode == "vgl" else bridge.VideoDataset
         dataset = ds_cls(dcfg, tokenize, seed=seed)
-    if len(dataset) < batch_size:
-        raise ValueError(f"{len(dataset)} instances make no batch of {batch_size}")
+    if len(dataset) < batch_size * world:
+        raise ValueError(f"{len(dataset)} instances make no global batch of "
+                         f"{batch_size} x {world} ranks")
     loader = bridge.PrefetchLoader(dataset, batch_size,
                                    num_workers=int(cfg.get("dataloader_num_workers", 4)),
-                                   seed=seed)
-    logger = MetricLogger(os.path.join(output_dir, cfg.get("logging_name", "logging")))
+                                   seed=seed, shard=(mesh.index(), mesh.size))
+    logger = MetricLogger(os.path.join(output_dir, cfg.get("logging_name", "logging"))) \
+        if is_main else None
     ckpt_every = int(cfg.get("checkpointing_steps", 3000))
     total_limit = int(cfg.get("checkpoints_total_limit", 15))
     val_every = int(cfg.get("validation_step", 0) or 0)
@@ -294,22 +429,26 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
         on_step(state.step, state, None, models)
     nonfinite_reads = 0
     t0 = time.perf_counter()
-    print(f"training {args.mode} on {device}, batch {batch_size}, "
-          f"{sum(p.numel() for p in state.params.values()) / 1e6:.1f} M trainable parameters")
+    say(f"training {args.mode} on {device}, mesh {mesh.shape}, global batch "
+        f"{batch_size * world} ({batch_size}/rank), "
+        f"{sum(p.numel() for p in state.params.values()) / 1e6:.1f} M trainable parameters")
     while state.step < num_iters:
         t_ask = time.perf_counter()
         for batch in loader:
             wait = time.perf_counter() - t_ask
             if state.step >= num_iters:
                 break
-            batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+            batch = parallel.global_batch(batch, mesh, device)
             state, m = step_fn(state, batch, gen)
             m["data_wait_s"] = wait
             step = state.step
             line = f"step {step}: waited {wait:.4f} s for the batch"
             if step % 10 == 0 or step == 1:
+                # the loss is the global batch's on every rank: every rank
+                # takes the same branch below
                 loss = float(m["loss"])
-                logger.log(step, loss=loss, grad_norm=float(m["grad_norm"]))
+                if logger is not None:
+                    logger.log(step, loss=loss, grad_norm=float(m["grad_norm"]))
                 line += f", loss {loss:.6f}"
                 # a diverged run burns accelerator hours silently: abort once
                 # the loss stays non-finite
@@ -322,18 +461,26 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
                             f"with a lower learning rate or grad clip.")
                 else:
                     nonfinite_reads = 0
-            print(line)
+            say(line)
             if on_step is not None:
                 on_step(step, state, m, models)
             if step % ckpt_every == 0:
                 path = ckpt.save_checkpoint(output_dir, step, state, total_limit)
-                print(f"step {step}: saved {path} ({time.perf_counter() - t0:.1f}s elapsed)")
+                say(f"step {step}: saved {path} ({time.perf_counter() - t0:.1f}s elapsed)")
             if val_every and cfg.get("validation_img_folder") and step % val_every == 0:
-                _validate(args, cfg, dcfg, models, tokenize, output_dir, step)
+                # rank 0 renders from its whole models; towers split over
+                # fsdp gather their blocks collectively, so then every rank
+                # renders in step and rank 0 writes
+                if is_main or frozen_sharding == "fsdp":
+                    _validate(args, cfg, dcfg, models, tokenize, output_dir, step,
+                              write=is_main)
+                if joined:
+                    dist.barrier()
             t_ask = time.perf_counter()
     path = ckpt.save_checkpoint(output_dir, state.step, state, total_limit)
-    print(f"done at step {state.step}; final checkpoint {path}")
-    logger.close()
+    say(f"done at step {state.step}; final checkpoint {path}")
+    if logger is not None:
+        logger.close()
     return state
 
 

@@ -18,6 +18,16 @@ Random draws come from a ``torch.Generator``; a step also takes them
 explicitly (``draws``): ``sigma`` N(0,1) ``[B]``, ``noise`` N(0,1) like the
 latents, ``aug`` N(0,1) like the first frame, ``dropout`` U(0,1) ``[B]``,
 ``mask`` U(0,1) ``[B, F, h, w, 1]``.
+
+On a mesh of ranks (``mesh=``, under a process group) each rank takes its
+rows of the global batch: every draw is made at the global batch's shape
+from the shared generator (or injected at that shape) and the rank keeps
+its rows, so the split does not change the numbers.  The gradients of the
+ranks are averaged over one flat bucket (reduce-scatter over fsdp, then
+all-reduce over dp and dcn), each rank updates its block rows of the
+trainable state (``parallel.shard_params``) and the new parameters are
+all-gathered.  Without a mesh, or without a process group, the step is the
+one-device step.
 """
 
 from __future__ import annotations
@@ -26,7 +36,10 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from .. import parallel
+from ..ops.quant8 import BLOCK
 from ..pipelines import common
 from . import edm, optimizers
 
@@ -62,15 +75,16 @@ def _is_partial_trainable(name: str) -> bool:
     return any("attn" in k or "emb" in k for k in name.split("."))
 
 
-def make_optimizer(cfg: TrainConfig, params: Optional[Dict[str, Any]] = None):
+def make_optimizer(cfg: TrainConfig, params: Optional[Dict[str, Any]] = None, group=None):
     """The optax chain of the JAX trainer; ``params`` (name -> tensor) is
-    needed for ``partial_finetune``'s labels."""
+    needed for ``partial_finetune``'s labels; ``group``: the fsdp process
+    group over which a sharded state's pieces are split (the clip's norm)."""
     schedule = optimizers.warmup_constant_schedule(cfg.learning_rate, cfg.lr_warmup_steps)
     make = optimizers.adamw8bit if cfg.use_8bit_adam else optimizers.adamw
     tx = make(schedule, b1=cfg.adam_beta1, b2=cfg.adam_beta2, eps=cfg.adam_epsilon,
               weight_decay=cfg.adam_weight_decay)
     if cfg.max_grad_norm is not None:
-        tx = optimizers.chain(optimizers.clip_by_global_norm(cfg.max_grad_norm), tx)
+        tx = optimizers.chain(optimizers.clip_by_global_norm(cfg.max_grad_norm, group), tx)
     if cfg.partial_finetune:
         if params is None:
             raise ValueError("partial_finetune needs the parameter names")
@@ -86,12 +100,23 @@ def make_optimizer(cfg: TrainConfig, params: Optional[Dict[str, Any]] = None):
 class TrainState:
     step: int
     params: Dict[str, torch.nn.Parameter]  # the trainable model's, updated in place
-    opt_state: Any
+    opt_state: Any  # of this rank's block rows under a mesh (``rows``)
+    rows: Optional[parallel.BlockRows] = None
 
 
-def init_train_state(model: torch.nn.Module, tx) -> TrainState:
+def _distributed(mesh) -> bool:
+    return mesh is not None and dist.is_available() and dist.is_initialized()
+
+
+def init_train_state(model: torch.nn.Module, tx, mesh=None) -> TrainState:
+    """Step 0; on a mesh of ranks the optimizer state is this rank's block
+    rows of every leaf (``parallel.shard_params``)."""
     params = dict(model.named_parameters())
-    return TrainState(0, params, tx.init({k: p.detach() for k, p in params.items()}))
+    detached = {k: p.detach() for k, p in params.items()}
+    if not _distributed(mesh):
+        return TrainState(0, params, tx.init(detached))
+    rows = parallel.shard_params(detached, mesh)
+    return TrainState(0, params, tx.init(rows.take(detached)), rows)
 
 
 # train/inference fps skew is reference behaviour: training conditions on the
@@ -121,15 +146,23 @@ def _vae_encode_frames(vae, frames, scaling_factor):
     return lat.reshape(b, f, *lat.shape[1:]) * scaling_factor
 
 
-def _draw(draws, name, shape, generator, device, uniform=False):
+def _draw(draws, name, shape, generator, device, uniform=False, share=None):
+    """The draw ``name`` for this rank's ``shape[0]`` rows: injected, or
+    made from ``generator``.  ``share = (index, n)``: the rank is part
+    ``index`` of ``n`` of the global batch; the draw is made (or injected)
+    at the global shape and the rank keeps its rows."""
+    idx, n = share or (0, 1)
+    b = shape[0]
     if name in draws:
-        return torch.as_tensor(draws[name], dtype=torch.float32, device=device)
-    fn = torch.rand if uniform else torch.randn
-    return fn(shape, generator=generator, device=device)
+        t = torch.as_tensor(draws[name], dtype=torch.float32, device=device)
+    else:
+        fn = torch.rand if uniform else torch.randn
+        t = fn((b * n,) + tuple(shape[1:]), generator=generator, device=device)
+    return t[idx * b:(idx + 1) * b] if n > 1 else t
 
 
 @torch.no_grad()
-def _conditioning(modules, cfg: TrainConfig, batch, generator, draws):
+def _conditioning(modules, cfg: TrainConfig, batch, generator, draws, share=None):
     """Frozen encodes and EDM noising, shared by VL and VGL."""
     vae = modules["vae"]
     frames = batch["video_frames"].float()
@@ -137,64 +170,106 @@ def _conditioning(modules, cfg: TrainConfig, batch, generator, draws):
     dev = frames.device
     latents = _vae_encode_frames(vae, frames, vae.config.scaling_factor)
     first = frames[:, 0]
-    first = first + _draw(draws, "aug", first.shape, generator, dev) \
+    first = first + _draw(draws, "aug", first.shape, generator, dev, share=share) \
         * cfg.train_noise_aug_strength
     cond_lat = vae.encode_mode(first)[:, None].repeat(1, f, 1, 1, 1)
     sigmas = edm.sample_sigmas(generator, b, cfg.noise_mean, cfg.noise_std,
-                               normal=_draw(draws, "sigma", (b,), generator, dev))
-    noise = _draw(draws, "noise", latents.shape, generator, dev)
+                               normal=_draw(draws, "sigma", (b,), generator, dev, share=share))
+    noise = _draw(draws, "noise", latents.shape, generator, dev, share=share)
     noisy, inp, timesteps = edm.edm_precondition(latents, noise, sigmas)
     states = _encode_conditioning_train(modules, frames, batch.get("prompt_ids"), cfg.use_text)
     if cfg.conditioning_dropout_prob:
         states, cond_lat = edm.conditioning_dropout(
             generator, states, cond_lat, cfg.conditioning_dropout_prob,
-            uniform=_draw(draws, "dropout", (b,), generator, dev, uniform=True))
+            uniform=_draw(draws, "dropout", (b,), generator, dev, uniform=True, share=share))
     add_ids = make_add_time_ids(cfg, batch["motion_bucket_id"], dev)
     return dict(latents=latents, noisy=noisy, inp=inp, timesteps=timesteps, sigmas=sigmas,
                 states=states, cond_lat=cond_lat, add_ids=add_ids)
 
 
-def _make_step(tx, loss_fn) -> Callable:
+def _share(mesh):
+    return (mesh.index(), mesh.size) if _distributed(mesh) else None
+
+
+def _sharded_update(state: TrainState, loss, tx, mesh):
+    """The step's gradients, update and new parameters on a mesh of ranks:
+    -> (new opt state, global loss, global gradient norm)."""
+    rows = state.rows
+    fsdp = rows.group
+    grads = torch.autograd.grad(loss, list(state.params.values()))
+    bucket = rows.pack(dict(zip(state.params, grads)))
+    del grads
+    mine = bucket.new_empty(rows.rows * BLOCK)
+    dist.reduce_scatter_tensor(mine, bucket, group=fsdp)
+    dist.all_reduce(mine, group=mesh.group(*(a for a in mesh.axis_names if a != "fsdp")))
+    mine /= mesh.size
+    loss = loss.detach().clone()
+    dist.all_reduce(loss)  # the mesh spans every rank
+    loss /= mesh.size
+    g = rows.views(mine)
+    gnorm = optimizers.global_norm(g, fsdp)
+    whole = {k: p.detach() for k, p in state.params.items()}
+    params = rows.take(whole)
+    updates, opt_state = tx.update(g, state.opt_state, params)
+    optimizers.apply_updates(params, updates)
+    mine.zero_()
+    for k, v in rows.views(mine).items():
+        v.copy_(params[k])
+    dist.all_gather_into_tensor(bucket, mine, group=fsdp)
+    rows.unpack(bucket, whole)
+    return opt_state, loss, gnorm
+
+
+def _make_step(tx, loss_fn, mesh=None) -> Callable:
     def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
              draws: Optional[dict] = None):
         """-> (state, {"loss", "grad_norm"}); ``grad_norm`` is the norm of
-        the unclipped gradients.  Both metrics stay on the device."""
+        the unclipped gradients.  Both metrics stay on the device; on a mesh
+        both are the global batch's."""
         loss = loss_fn(batch, generator, draws or {})
+        if state.rows is not None:
+            opt_state, loss, gnorm = _sharded_update(state, loss, tx, mesh)
+            return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
+                    {"loss": loss, "grad_norm": gnorm})
         grads = dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values()))))
         gnorm = optimizers.global_norm(grads)
         params = {k: p.detach() for k, p in state.params.items()}
         updates, opt_state = tx.update(grads, state.opt_state, params)
         optimizers.apply_updates(params, updates)
-        return (TrainState(state.step + 1, state.params, opt_state),
+        return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
                 {"loss": loss.detach(), "grad_norm": gnorm})
 
     step.loss_fn = loss_fn  # (batch, generator, draws) -> loss, for inspection
     return step
 
 
-def make_vl_train_step(unet, modules: dict, tx, cfg: TrainConfig) -> Callable:
+def make_vl_train_step(unet, modules: dict, tx, cfg: TrainConfig, mesh=None) -> Callable:
     """``step(state, batch, generator=None, draws=None)``; ``batch``:
     video_frames [B,F,H,W,3] in [-1,1], prompt_ids [B,77], motion_bucket_id
-    [B]; ``modules``: the frozen vae / image_encoder / text_encoder."""
+    [B] (this rank's rows on a ``mesh``); ``modules``: the frozen vae /
+    image_encoder / text_encoder."""
+    share = _share(mesh)
 
     def loss_fn(batch, generator, draws):
-        c = _conditioning(modules, cfg, batch, generator, draws)
+        c = _conditioning(modules, cfg, batch, generator, draws, share)
         inp = torch.cat([c["inp"], c["cond_lat"]], dim=-1)
         # every batch row is an independent clip: per-sample temporal context
         pred = unet(inp, c["timesteps"], c["states"], c["add_ids"],
                     context_clips=inp.shape[0])
         return edm.edm_loss(pred, c["noisy"], c["latents"], c["sigmas"])
 
-    return _make_step(tx, loss_fn)
+    return _make_step(tx, loss_fn, mesh)
 
 
-def make_vgl_train_step(unet, controlnet, modules: dict, tx, cfg: TrainConfig) -> Callable:
+def make_vgl_train_step(unet, controlnet, modules: dict, tx, cfg: TrainConfig,
+                        mesh=None) -> Callable:
     """VGL: the ControlNet trains, the UNet is frozen but stays in the
     gradient path (loss -> UNet -> residuals), so it runs with autograd on;
     ``batch`` also carries ``condition`` [B,F,H,W,3] in [0,1]."""
+    share = _share(mesh)
 
     def loss_fn(batch, generator, draws):
-        c = _conditioning(modules, cfg, batch, generator, draws)
+        c = _conditioning(modules, cfg, batch, generator, draws, share)
         cond_lat = c["cond_lat"]
         b, f = cond_lat.shape[:2]
         dev = cond_lat.device
@@ -203,7 +278,7 @@ def make_vgl_train_step(unet, controlnet, modules: dict, tx, cfg: TrainConfig) -
             # per-(frame, pixel) keep mask, channel-synchronised; with both
             # flags the UNet reuses the ControlNet's masked latents
             u = _draw(draws, "mask", (b, f) + tuple(cond_lat.shape[2:4]) + (1,), generator,
-                      dev, uniform=True)
+                      dev, uniform=True, share=share)
             masked = cond_lat * (u < (1.0 - cfg.mask_proportion)).to(cond_lat.dtype)
             if cfg.mask_controlnet_vae:
                 cn_cond_lat = masked
@@ -222,4 +297,4 @@ def make_vgl_train_step(unet, controlnet, modules: dict, tx, cfg: TrainConfig) -
                     context_clips=b)
         return edm.edm_loss(pred, c["noisy"], c["latents"], c["sigmas"])
 
-    return _make_step(tx, loss_fn)
+    return _make_step(tx, loss_fn, mesh)

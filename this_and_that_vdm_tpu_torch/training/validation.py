@@ -39,12 +39,15 @@ def render_validation(
     motion_bucket_id: int = 200,
     max_instances: Optional[int] = None,
     seed: int = 42,
+    write: bool = True,
 ) -> list:
     """Render every instance folder of ``instances_dir`` (``im_0.jpg``,
     ``lang.txt``, and in VGL ``data.txt``; others are skipped) with
     ``tokenize(prompt) -> [1, 77]`` ids and the draws of
     ``torch.Generator(device).manual_seed(seed)``; returns the folders
-    written."""
+    written (``write``; else renders alone, as the ranks beside rank 0 do
+    when the towers are split over them, and returns the folders rank 0
+    writes)."""
     out_root = os.path.join(output_dir, f"step_{step}")
     written = []
     names = sorted(d for d in os.listdir(instances_dir)
@@ -78,9 +81,11 @@ def render_validation(
             frames = pipeline(img[None], **call)
 
         out_dir = os.path.join(out_root, name)
+        written.append(out_dir)
+        if not write:
+            continue
         os.makedirs(out_dir, exist_ok=True)
         for i, fr in enumerate(frames[0]):
             video_io.write_png(os.path.join(out_dir, f"{i}.png"), fr)
         video_io.export_gif(frames[0], os.path.join(out_dir, "combined.gif"), fps=4)
-        written.append(out_dir)
     return written

@@ -15,14 +15,18 @@ the standard library and numpy only.
 - ``export_mp4``: mp4 through imageio where it has a writer, else a GIF.
 - ``psnr``, ``ssim`` (11x11 Gaussian window, sigma 1.5, the window's
   ``valid`` part only), ``per_frame_metrics``, ``load_frames_dir``.
+- The tools: ``combine_results_grid`` (cv2 for labels and rescaling
+  only), ``interpolate_by_repeat``, ``repeat_to_length``,
+  ``train_test_split``.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import struct
 import zlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -247,6 +251,72 @@ def export_mp4(frames_uint8: Sequence[np.ndarray], path: str, fps: int = 4) -> s
 
 
 # --------------------------------------------------------------- metrics
+
+def combine_results_grid(result_dirs: Sequence[str], out_path: str,
+                         labels: Optional[Sequence[str]] = None, fps: int = 4) -> str:
+    """Side-by-side GIF of several methods' outputs on one instance
+    (reference scripts/combine_results.py:16-27 human-eval grids): frame t
+    of each folder's ``0.png ..`` in a row, each scaled to the smallest
+    height.  The scaling and the ``labels`` are drawn with cv2 (bilinear
+    resize, Hershey text), imported only when needed."""
+    seqs = [load_frames_dir(d) for d in result_dirs]
+    n = min(len(s) for s in seqs)
+    h = min(s[0].shape[0] for s in seqs)
+    cv2 = None
+    if labels or any(s[0].shape[0] != h for s in seqs):
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError("combine_results_grid draws labels and scales frames of "
+                               "different heights with cv2, which is not installed") from None
+    rows = []
+    for t in range(n):
+        row = []
+        for si, s in enumerate(seqs):
+            fr = s[t]
+            if fr.shape[0] != h:
+                fr = cv2.resize(fr, (int(fr.shape[1] * h / fr.shape[0]), h))
+            if labels:
+                fr = fr.copy()
+                cv2.putText(fr, labels[si], (4, 16), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                            (255, 255, 0), 1)
+            row.append(fr)
+        rows.append(np.concatenate(row, axis=1))
+    return export_gif(rows, out_path, fps)
+
+
+def interpolate_by_repeat(frames: Sequence[np.ndarray], factor: int = 2) -> list:
+    """Frame-repeat temporal upsampling (scripts/interpolate_by_repeat.py)."""
+    return [f for f in frames for _ in range(factor)]
+
+
+def repeat_to_length(frames: Sequence[np.ndarray], target: int) -> list:
+    """Repeat frames to exactly ``target`` outputs, the remainder handed
+    out alternately to the front and the back (reference
+    scripts/interpolate_by_repeat.py:30-41; the reference drops one
+    remainder slot and emits ``target - 1`` frames, which this does not)."""
+    n = len(frames)
+    assert 1 <= n <= target
+    gaps = [target // n] * n
+    for idx in range(target % n):
+        if idx % 2 == 0:
+            gaps[idx // 2] += 1
+        else:
+            gaps[-(1 + idx // 2)] += 1
+    return [f for f, g in zip(frames, gaps) for _ in range(g)]
+
+
+def train_test_split(instance_root: str, test_fraction: float = 0.1, seed: int = 42):
+    """Split the instance folders of ``instance_root`` into (train paths,
+    test paths): the sorted names shuffled by ``random.Random(seed)``, the
+    first ``int(n * test_fraction)`` for test."""
+    names = sorted(d for d in os.listdir(instance_root)
+                   if os.path.isdir(os.path.join(instance_root, d)))
+    random.Random(seed).shuffle(names)
+    k = int(len(names) * test_fraction)
+    return ([os.path.join(instance_root, n) for n in sorted(names[k:])],
+            [os.path.join(instance_root, n) for n in sorted(names[:k])])
+
 
 def psnr(a: np.ndarray, b: np.ndarray, data_range: float = 255.0) -> float:
     a = a.astype(np.float64)
