@@ -146,10 +146,12 @@ Phases (any failure raises and exits nonzero):
                  tests/torch_goldens/jpeg (made by tests/make_jpeg_goldens.py
                  with cv2, which this machine lacks): every file decoded
                  bit-equal to cv2's pixels (their sha256 for the 480x640
-                 one), every seeded source encoded to bytes of cv2's sha256,
-                 the progressive file refused; then medians of 20 runs:
-                 decode and encode of one 480x640 q95 4:2:0 frame on one
-                 thread, load_frames_native of a 14-frame 480x640 -> 256x384
+                 ones), progressive and one-component-a-scan files
+                 included, every seeded source encoded to bytes of cv2's
+                 sha256, the arithmetic-coded file refused; then medians of
+                 20 runs: decode and encode of one 480x640 q95 4:2:0 frame
+                 on one thread, decode of its progressive golden,
+                 load_frames_native of a 14-frame 480x640 -> 256x384
                  batch on 1, 4 and 8 threads, and the plain path on the same
                  batch (decode + numpy resize), held bit-equal to it; phase
                  9's data_wait_s on its JPEG tree
@@ -159,11 +161,13 @@ Phases (any failure raises and exits nonzero):
                  bit-equal to those rows of the whole-tree launch and within
                  phase 3's K4 bounds of the plain version; train_loop --devices
                  1 --fsdp 1 on the VGL YAML as phase 6 runs it (a real NCCL
-                 group of one: the gradient bucket's reduce-scatter and
-                 all-reduce, K4 on the rank's block rows, the parameters'
-                 all-gather, the collective checkpoint), its losses and
-                 gradient norms within MESH_TRAIN_REL_BOUND of phase 6's and
-                 its checkpoint restored bit-equal; VideoGenServer on
+                 group of one: the trainable model in ZeRO-3 units, each
+                 unit's gradients packed into the rank's rows as the
+                 backward completes them, their all-reduce, K4 once over the
+                 rows, the collective checkpoint), its losses and gradient
+                 norms within MESH_TRAIN_REL_BOUND of phase 6's, its
+                 checkpoint restored bit-equal, its trainable bytes at rest
+                 and peak memory printed; VideoGenServer on
                  make_serving_mesh([cuda:0, cuda:0], cfg=2) (the CFG branches
                  apart) answering two 4-step VGL requests at full width, their
                  final latents within MESH_SERVE_REL_L2_BOUND of the same
@@ -1595,6 +1599,8 @@ def mesh_train(smi, ref):
                                            grad_norm=float(m["grad_norm"])))
             if step == steps:
                 adam = state.opt_state[1][0]
+                rec["resident"] = state.rows.resident_bytes()
+                rec["whole"] = sum(p.numel() * 4 for p in state.params.values())
                 rec["params"] = {k: p.detach().clone() for k, p in state.params.items()}
                 rec["moments"] = [(q.q.clone(), q.scale.clone()) for d in (adam.mu, adam.nu)
                                   for q in d.values()]
@@ -1627,7 +1633,8 @@ def mesh_train(smi, ref):
                sharded_state=rec["sharded"], checkpoint_params_equal=params_equal,
                checkpoint_moments_equal=moments_equal, step_s=rec["step_s"],
                timed_step_s=timed, phase6_timed_step_s=ref["timed_step_s"], launches=counts,
-               peak_bytes=peak, phase6_peak_bytes=ref["peak_bytes"], wall_s=wall)
+               peak_bytes=peak, phase6_peak_bytes=ref["peak_bytes"],
+               resident_param_bytes=rec["resident"], whole_param_bytes=rec["whole"], wall_s=wall)
     for a, r in zip(rec["metrics"], rels):
         log(f"[mesh] world-1 NCCL VGL step {a['step']}: loss {a['loss']:.6f} grad_norm "
             f"{a['grad_norm']:.6f}; worst relative difference to phase 6 {r:.3e} (bound "
@@ -1636,8 +1643,10 @@ def mesh_train(smi, ref):
         f"steps >= 2: {[round(t, 4) for t in timed]}; phase 6: "
         f"{[round(t, 4) for t in ref['timed_step_s']]}); checkpoint restored bit-equal: "
         f"params {params_equal}, 8-bit moments {moments_equal}; peak memory "
-        f"{peak / 2**30:.2f} GiB (phase 6: {ref['peak_bytes'] / 2**30:.2f}); launches {counts}; "
-        f"wall {wall:.1f} s  [{smi}]")
+        f"{peak / 2**30:.2f} GiB (phase 6: {ref['peak_bytes'] / 2**30:.2f}); trainable "
+        f"parameters at rest {rec['resident'] / 2**30:.3f} of {rec['whole'] / 2**30:.3f} GiB "
+        f"(fsdp 1: the whole model in whole blocks); launches {counts}; wall {wall:.1f} s  "
+        f"[{smi}]")
     if not (rec["sharded"] and len(rels) == steps and max(rels) <= MESH_TRAIN_REL_BOUND):
         raise RuntimeError(f"mesh train: {rep}")
     if not (params_equal and moments_equal):
@@ -2916,7 +2925,8 @@ def phase_frames(smi, data_wait):
     rep = dict(goldens=[list(r) for r in rows], goldens_s=time.perf_counter() - t0)
     bad = [r for r in rows if not r[2]]
     log(f"[frames] JPEG goldens: {len(rows) - len(bad)} of {len(rows)} hold (decode bit-equal "
-        f"to cv2's pixels, encode to cv2's bytes, progressive refused) in "
+        f"to cv2's pixels, progressive and one-component-a-scan files included; encode to "
+        f"cv2's bytes; arithmetic-coded refused) in "
         f"{rep['goldens_s']:.3f} s  [{smi}]")
     if bad:
         raise RuntimeError(f"frames: goldens that fail {bad}")
@@ -2927,8 +2937,14 @@ def phase_frames(smi, data_wait):
     img = host_native.decode_jpeg(data)
     rep["decode_s"], rep["decode_runs"] = median_s(lambda: host_native.decode_jpeg(data), runs)
     rep["encode_s"], rep["encode_runs"] = median_s(lambda: host_native.encode_jpeg(img), runs)
+    with open(os.path.join(goldens.HERE, "progressive_frame_480x640.jpg"), "rb") as f:
+        prog = f.read()
+    rep["progressive_decode_s"], rep["progressive_decode_runs"] = median_s(
+        lambda: host_native.decode_jpeg(prog), runs)
     log(f"[frames] one 480x640 q95 4:2:0 frame on one thread: decode {rep['decode_s'] * 1e3:.3f}"
-        f" ms, encode {rep['encode_s'] * 1e3:.3f} ms (median of {runs})  [{smi}]")
+        f" ms, encode {rep['encode_s'] * 1e3:.3f} ms; the progressive one (bit-equal to its "
+        f"golden above) decodes in {rep['progressive_decode_s'] * 1e3:.3f} ms (medians of "
+        f"{runs})  [{smi}]")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_frames_")
     try:

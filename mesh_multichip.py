@@ -12,9 +12,12 @@
 2. train      train_loop on config/train_image2video_gesturenet.yaml (full
               width, synthetic clips), 3 steps: one process at
               train_batch_size 4, then --devices 4 --fsdp 2 (dp 2 x fsdp 2,
-              NCCL) at 1 clip a rank: the same global batch.  Loss and
-              global gradient norm held to chip_smoke.MESH_TRAIN_REL_BOUND;
-              seconds per step and peak memory of each.
+              NCCL) and --devices 4 --fsdp 4 at 1 clip a rank: the same
+              global batch.  Loss and global gradient norm held to
+              chip_smoke.MESH_TRAIN_REL_BOUND; seconds per step, and each
+              rank's trainable parameter bytes at rest (ZeRO-3: at most
+              1/fsdp of the model plus a padding block a leaf), peak memory
+              and synchronised step seconds (train_loop's ranks.json).
 3. serve      VideoGenServer of the full-width VGL pipeline (bf16): two
               4-step requests served unsplit on card 0, then as one batch on
               make_serving_mesh(cards 0-3, cfg=2) (clip 2 x cfg 2: each clip
@@ -24,6 +27,8 @@
 
 Needs four cards.  Prints one line a check, the cards' names and power
 limits, and writes chiprun_out/mesh_multichip.json.
+Arguments name the phases to run (default: all three), e.g.
+``python3 mesh_multichip.py train``.
 """
 
 from __future__ import annotations
@@ -97,7 +102,7 @@ def phase_kernels(smi):
     return out
 
 
-def _train(cfg_path, argv, rec):
+def _train(cfg_path, out_dir, argv, rec):
     from this_and_that_vdm_tpu_torch.training import train_loop
 
     def on_step(step, state, m, models):
@@ -116,6 +121,8 @@ def _train(cfg_path, argv, rec):
                      "--synthetic", "8"] + argv, on_step=on_step)
     rec["wall_s"] = time.perf_counter() - t0
     rec["peak_bytes_rank0"] = torch.cuda.max_memory_allocated(0)
+    with open(os.path.join(out_dir, "ranks.json")) as f:
+        rec["ranks"] = json.load(f)
 
 
 def phase_train(smi):
@@ -123,9 +130,10 @@ def phase_train(smi):
     tmp = tempfile.mkdtemp(prefix="mesh_multichip_")
     runs = {}
     try:
-        for name, batch, argv in (("one process, batch 4", 4, []),
-                                  ("4 ranks (dp 2 x fsdp 2), batch 1 a rank", 1,
-                                   ["--devices", str(CARDS), "--fsdp", "2"])):
+        for name, batch, fsdp in (("one process, batch 4", 4, None),
+                                  ("4 ranks (dp 2 x fsdp 2), batch 1 a rank", 1, 2),
+                                  ("4 ranks (fsdp 4), batch 1 a rank", 1, CARDS)):
+            argv = [] if fsdp is None else ["--devices", str(CARDS), "--fsdp", str(fsdp)]
             edits = {"output_dir": f"{tmp}/{len(runs)}", "train_batch_size": batch}
             with open(config) as f:
                 lines = [next((f"{k}: {v}" for k, v in edits.items()
@@ -134,26 +142,41 @@ def phase_train(smi):
             cfg_path = os.path.join(tmp, f"{len(runs)}.yaml")
             with open(cfg_path, "w") as f:
                 f.write("\n".join(lines) + "\n")
-            rec = dict(metrics=[], step_s=[])
-            _train(cfg_path, argv, rec)
+            rec = dict(metrics=[], step_s=[], fsdp=fsdp)
+            _train(cfg_path, edits["output_dir"], argv, rec)
             runs[name] = rec
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    ref, got = runs.values()
-    rels = [max(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
-                abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
-            for a, b in zip(got["metrics"], ref["metrics"])]
+    ref = runs["one process, batch 4"]
     for k, r in runs.items():
         c.log(f"[train] {k}: metrics {r['metrics']}; seconds per step "
               f"{[round(t, 4) for t in r['step_s']]}; rank 0 peak memory "
               f"{r['peak_bytes_rank0'] / 2**30:.2f} GiB; wall {r['wall_s']:.1f} s  [{smi}]")
-    c.log(f"[train] 4 ranks against one process at the same global batch: worst relative "
-          f"difference of loss / gradient norm by step {[f'{x:.3e}' for x in rels]} (bound "
-          f"{c.MESH_TRAIN_REL_BOUND:.0e})")
-    if len(rels) != 3 or max(rels) > c.MESH_TRAIN_REL_BOUND:
-        raise RuntimeError(f"train: {runs}")
-    return dict(runs=runs, rel=rels)
+        for q in r["ranks"]:
+            c.log(f"[train] {k}: rank {q['rank']}: trainable parameters at rest "
+                  f"{q['resident_param_bytes'] / 2**30:.3f} of {q['whole_param_bytes'] / 2**30:.3f}"
+                  f" GiB, peak {q['peak_bytes'] / 2**30:.2f} GiB, seconds per step "
+                  f"{[round(t, 4) for t in q['step_s']]}  [{smi}]")
+    bad = []
+    for k, r in runs.items():
+        if r is ref:
+            continue
+        r["rel"] = [max(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                        abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+                    for a, b in zip(r["metrics"], ref["metrics"])]
+        c.log(f"[train] {k} against one process at the same global batch: worst relative "
+              f"difference of loss / gradient norm by step {[f'{x:.3e}' for x in r['rel']]} "
+              f"(bound {c.MESH_TRAIN_REL_BOUND:.0e})")
+        if len(r["rel"]) != 3 or max(r["rel"]) > c.MESH_TRAIN_REL_BOUND:
+            bad.append(k)
+        for q in r["ranks"]:  # ZeRO-3: a rank's share of the model, one padding block a leaf
+            whole = q["whole_param_bytes"]
+            if q["resident_param_bytes"] > whole / r["fsdp"] + q["leaves"] * 256 * 4:
+                bad.append(f"{k}: rank {q['rank']} holds {q['resident_param_bytes']} bytes")
+    if bad:
+        raise RuntimeError(f"train: {bad}: {runs}")
+    return dict(runs=runs)
 
 
 @torch.no_grad()
@@ -231,9 +254,13 @@ def main():
                            timeout=60, check=True).stdout.strip().splitlines()
     c.log(f"cards: {cards}")
     c.phase_build()
-    rep = dict(card=smi, cards=cards, kernels=phase_kernels(smi))
-    rep["train"] = phase_train(smi)
-    rep["serve"] = phase_serve(smi)
+    phases = dict(kernels=phase_kernels, train=phase_train, serve=phase_serve)
+    wanted = sys.argv[1:] or list(phases)
+    if set(wanted) - set(phases):
+        raise SystemExit(f"mesh_multichip: phases are {list(phases)}, got {wanted}")
+    rep = dict(card=smi, cards=cards)
+    for name in wanted:
+        rep[name] = phases[name](smi)
     rep["wall_s"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "mesh_multichip.json"), "w") as f:

@@ -8,14 +8,17 @@ Every source image is made from a seed with numpy alone
 (:func:`source_image`), so a machine without cv2 remakes it exactly.  The
 script writes:
 
-- ``<name>.jpg``: the source encoded by cv2 (or PIL, or spliced from a cv2
-  file: an Adobe marker in place of the JFIF one), one file a case of
+- ``<name>.jpg``: the source encoded by cv2 (baseline or progressive; or
+  PIL; or spliced from a cv2 file: an Adobe marker in place of the JFIF one;
+  or by the port's encoder in its one-component-a-scan test mode, a kind of
+  file no writer here makes otherwise), one file a case of
   :data:`DECODE_CASES`;
 - ``pixels.npz``: ``cv2.imread``'s pixels (RGB) of every small file;
 - ``manifest.json``: each case's parameters, the sha256 of cv2's pixels
-  (the only record kept of the 480x640 file's) and, for every source of
-  :data:`ENCODE_CASES`, the sha256 of the bytes ``cv2.imwrite`` writes for
-  it at its defaults.
+  (the only record kept of the 480x640 files'), for every source of
+  :data:`ENCODE_CASES` the sha256 of the bytes ``cv2.imwrite`` writes for
+  it at its defaults, and the files of :data:`REFUSED` with the marker the
+  decoder names when it refuses them.
 
 ``tests/test_torch_jpeg.py`` and ``chip_smoke.py`` (phase 12, on a machine
 with no cv2) read the same files.
@@ -27,6 +30,7 @@ import hashlib
 import io
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -57,6 +61,19 @@ DECODE_CASES = {
     "pil_422_optimized": (17, 45, 67, dict(writer="pil", quality=80, subsampling=1,
                                            optimize=True)),
     "frame_480x640": (18, 480, 640, dict(writer="cv2", quality=95, sampling="420")),
+    "progressive": (30, 37, 53, dict(writer="cv2", quality=95, sampling="420",
+                                     progressive=True)),
+    "progressive_444_odd": (31, 61, 93, dict(writer="cv2", quality=90, sampling="444",
+                                             progressive=True)),
+    "progressive_422_optimized": (32, 45, 67, dict(writer="cv2", quality=80, sampling="422",
+                                                   progressive=True, optimize=True)),
+    "progressive_grey": (33, 61, 93, dict(writer="cv2", quality=95, grey=True,
+                                          progressive=True)),
+    "progressive_restart": (34, 37, 53, dict(writer="cv2", quality=95, sampling="420",
+                                             progressive=True, restart=2)),
+    "progressive_frame_480x640": (35, 480, 640, dict(writer="cv2", quality=95, sampling="420",
+                                                     progressive=True)),
+    "one_scan_per_component": (36, 61, 93, dict(writer="port_scans")),
 }
 PIXELS_IN_NPZ_MAX = 100 * 100  # larger files keep only the sha256 of their pixels
 
@@ -65,8 +82,9 @@ ENCODE_CASES = [(21, 1, 1, False), (22, 2, 3, False), (23, 8, 8, False), (24, 17
                 (25, 31, 17, False), (26, 61, 93, False), (27, 61, 93, True),
                 (28, 480, 640, False)]
 
-# refused by the decoder: written here, checked to raise
-REFUSED = {"progressive": (30, 37, 53)}
+# refused by the decoder: a cv2 file with its SOF0 marker patched to this
+# frame type, checked to raise naming it; name -> (seed, height, width, marker)
+REFUSED = {"arithmetic": (37, 37, 53, 0xC9)}
 
 
 def source_image(seed: int, height: int, width: int, grey: bool = False) -> np.ndarray:
@@ -101,6 +119,10 @@ def encode_case(seed, height, width, how) -> bytes:
 
     grey = how.get("grey", False)
     src = source_image(seed, height, width, grey)
+    if how["writer"] == "port_scans":
+        from this_and_that_vdm_tpu_torch.utils import host_native
+
+        return host_native.encode_jpeg(src, scan_per_component=True)
     if how["writer"] == "pil":
         from PIL import Image
 
@@ -118,6 +140,10 @@ def encode_case(seed, height, width, how) -> bytes:
         params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[how["sampling"]]]
     if "restart" in how:
         params += [cv2.IMWRITE_JPEG_RST_INTERVAL, how["restart"]]
+    if how.get("progressive"):
+        params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    if how.get("optimize"):
+        params += [cv2.IMWRITE_JPEG_OPTIMIZE, 1]
     ok, buf = cv2.imencode(".jpg", src if grey else src[..., ::-1], params)
     assert ok
     data = buf.tobytes()
@@ -126,6 +152,16 @@ def encode_case(seed, height, width, how) -> bytes:
         adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([how["adobe"]])
         data = data[:2] + adobe + data[20:]
     return data
+
+
+def refused_file(seed, height, width, marker) -> bytes:
+    """A cv2 baseline file with its SOF0 marker patched to ``marker``."""
+    import cv2
+
+    ok, buf = cv2.imencode(".jpg", source_image(seed, height, width)[..., ::-1])
+    data = bytearray(buf.tobytes())
+    data[data.index(b"\xff\xc0") + 1] = marker
+    return bytes(data)
 
 
 def cv2_pixels(data: bytes) -> np.ndarray:
@@ -187,6 +223,7 @@ def check_goldens(decode, encode, folder: str = HERE):
 def main():
     import cv2
 
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     os.makedirs(HERE, exist_ok=True)
     manifest = {"cv2": cv2.__version__, "decode": {}, "encode": [], "refused": {}}
     pixels = {}
@@ -203,12 +240,11 @@ def main():
     for seed, h, w, grey in ENCODE_CASES:
         manifest["encode"].append(dict(seed=seed, height=h, width=w, grey=grey,
                                        bytes_sha256=sha256(cv2_encoded(seed, h, w, grey))))
-    for name, (seed, h, w) in REFUSED.items():
-        ok, buf = cv2.imencode(".jpg", source_image(seed, h, w)[..., ::-1],
-                               [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    for name, (seed, h, w, marker) in REFUSED.items():
         with open(os.path.join(HERE, f"{name}.jpg"), "wb") as f:
-            f.write(buf.tobytes())
-        manifest["refused"][name] = dict(seed=seed, height=h, width=w, marker="SOF2")
+            f.write(refused_file(seed, h, w, marker))
+        manifest["refused"][name] = dict(seed=seed, height=h, width=w,
+                                         marker=f"SOF{marker - 0xC0}")
     np.savez_compressed(os.path.join(HERE, "pixels.npz"), **pixels)
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

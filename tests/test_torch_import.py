@@ -376,3 +376,11 @@ def test_non_cpu_non_cuda_tensor_raises(kernel):
             q = torch.empty((32, 256), device="meta", dtype=torch.uint8)
             s = torch.empty((32,), device="meta")
             adam8bit.adam8bit_update(m.reshape(32, 256), q, s, q, s, (0.1, 0.001))
+
+
+def test_package_exports_the_jax_packages_clip_defaults():
+    import this_and_that_vdm_tpu as jax_package
+    import this_and_that_vdm_tpu_torch as port
+
+    for name in ("FRAME_COUNT_DEFAULT", "HEIGHT_DEFAULT", "WIDTH_DEFAULT"):
+        assert getattr(port, name) == getattr(jax_package, name), name

@@ -6,9 +6,13 @@ cv2 as the oracle, on the CPU.
   seeded corpus made here with ``cv2.imwrite`` / PIL: qualities 50, 75, 95,
   100; 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1; greyscale; a restart interval;
   odd and tiny sizes (61x93, 1x1, 2x3, 5x4); Adobe markers (transform 1
-  and 0); an EXIF orientation; PIL's optimised tables.
-- Refused: progressive, arithmetic, lossless and 12-bit streams raise
-  ``ValueError`` naming the file and the marker; a truncated file raises
+  and 0); an EXIF orientation; PIL's optimised tables; progressive files
+  (cv2's and PIL's scan scripts: spectral selection, successive
+  approximation, EOB runs, restart intervals, optimised tables); baseline
+  files with one component a scan (the port's encoder in its test mode).
+- Refused: arithmetic, lossless and 12-bit streams, and a progressive
+  stream cut after its first scans (where libjpeg smooths the blocks),
+  raise ``ValueError`` naming the file and the marker; a truncated file raises
   (where cv2.imread returns None or fills the rest with grey); a Huffman
   table whose codes do not fit their lengths raises; a missing file raises
   ``FileNotFoundError``.
@@ -39,12 +43,17 @@ def _cv2_rgb(data: bytes):
     return None if bgr is None else bgr[..., ::-1]
 
 
-def _cv2_file(src, quality=95, sampling="420", restart=0, grey=False):
+def _cv2_file(src, quality=95, sampling="420", restart=0, grey=False, progressive=False,
+              optimize=False):
     params = [cv2.IMWRITE_JPEG_QUALITY, quality]
     if not grey:
         params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, goldens.SAMPLING[sampling]]
     if restart:
         params += [cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if progressive:
+        params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    if optimize:
+        params += [cv2.IMWRITE_JPEG_OPTIMIZE, 1]
     ok, buf = cv2.imencode(".jpg", src if grey else src[..., ::-1], params)
     assert ok
     return buf.tobytes()
@@ -84,6 +93,25 @@ _CORPUS = {
     "pil_optimized_422": lambda: _pil_file(_SRC(11, 45, 67), quality=80, subsampling=1,
                                            optimize=True),
     "frame_240x320": lambda: _cv2_file(_SRC(12, 240, 320)),
+    **{f"progressive_q{q}_{s}": (lambda q=q, s=s: _cv2_file(_SRC(q + len(s) + 40, 61, 93), q, s,
+                                                            progressive=True))
+       for q in (50, 95) for s in ("444", "422", "420")},
+    "progressive_q85_411_odd": lambda: _cv2_file(_SRC(20, 45, 70), 85, "411", progressive=True),
+    "progressive_grey": lambda: _cv2_file(_SRC(21, 61, 93, grey=True), 90, grey=True,
+                                          progressive=True),
+    "progressive_restart_interval": lambda: _cv2_file(_SRC(22, 61, 93), 90, "420", restart=3,
+                                                      progressive=True),
+    "progressive_optimized": lambda: _cv2_file(_SRC(23, 37, 53), 80, "420", progressive=True,
+                                               optimize=True),
+    "progressive_five_by_four": lambda: _cv2_file(_SRC(24, 5, 4), 95, "422", progressive=True),
+    "pil_progressive_444": lambda: _pil_file(_SRC(25, 45, 67), quality=85, subsampling=0,
+                                             progressive=True),
+    "pil_progressive_420_optimized": lambda: _pil_file(_SRC(26, 61, 93), quality=75,
+                                                       subsampling=2, progressive=True,
+                                                       optimize=True),
+    **{f"one_scan_per_component_{h}x{w}": (
+        lambda h=h, w=w: host_native.encode_jpeg(_SRC(h + w, h, w), scan_per_component=True))
+       for h, w in ((1, 1), (17, 33), (61, 93))},
 }
 
 
@@ -107,10 +135,17 @@ def _sof_patched(marker=None, precision=None):
     return bytes(data)
 
 
+def _progressive_cut(scans):
+    """A cv2 progressive file cut after its first ``scans`` scans, then EOI:
+    cv2 decodes it, smoothing the blocks whose coefficients stay inexact."""
+    data = _cv2_file(_SRC(14, 24, 32), progressive=True)
+    at = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"][scans]
+    assert _cv2_rgb(data[:at] + b"\xff\xd9") is not None
+    return data[:at] + b"\xff\xd9"
+
+
 @pytest.mark.parametrize("kind,make,needle", [
-    ("progressive", lambda: cv2.imencode(".jpg", _SRC(14, 24, 32),
-                                         [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes(),
-     "progressive (SOF2)"),
+    ("progressive_incomplete", lambda: _progressive_cut(3), "block smoothing"),
     ("arithmetic", lambda: _sof_patched(marker=0xC9), "arithmetic-coded sequential (SOF9)"),
     ("lossless", lambda: _sof_patched(marker=0xC3), "lossless (SOF3)"),
     ("twelve_bit", lambda: _sof_patched(precision=12), "12-bit JPEG is not supported"),

@@ -11,8 +11,11 @@ to the JAX step).  Bounds: loss and global gradient norm 5e-3 relative (the
 JAX multichip oracle's, ``__graft_entry__.py``), parameters 1e-5 relative
 (their L2 distance to the reference over its norm, a leaf at a time);
 ``frozen_sharding: fsdp`` against replicated towers 1e-4 relative, as JAX's
-``tests/test_training.py``.  A checkpoint written at world 2 resumes at
-world 1.  Four processes on (dcn 2, dp 1, fsdp 2) train through
+``tests/test_training.py``.  Under fsdp each rank holds at most its share of
+the trainable parameters between steps (ZeRO-3, JAX's "params stayed
+sharded"), and a validation render from the sharded models equals the
+one-process render of the same parameters.  A checkpoint written at world 2
+resumes at world 1.  Four processes on (dcn 2, dp 1, fsdp 2) train through
 ``train_loop`` and resume from their checkpoint after a full restart.
 
 Every process has its own timeout; a hang fails the test.
@@ -30,7 +33,7 @@ import pytest
 import torch
 
 import torch_mesh_worker as worker
-from torch_train_harness import B, batch, build_towers, draws
+from torch_train_harness import F, H, W, batch, build_towers, draws
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,6 +83,7 @@ def run(tmp_path_factory):
         for k, v in draws(jax.random.PRNGKey(100 + i)).items():
             data[f"draws{i}_{k}"] = v
     np.savez(root / "data.npz", **data)
+    _instance(root / "val" / "v0")
     (root / "scenarios.json").write_text(json.dumps(SCENARIOS))
     port = _port()
     procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "tests", "torch_mesh_worker.py"),
@@ -94,6 +98,18 @@ def run(tmp_path_factory):
     return root, states, data, refs
 
 
+def _instance(d):
+    """A VGL validation instance at the batch's size (``shape.json``)."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    d.mkdir(parents=True)
+    img = (np.random.RandomState(3).rand(H, W, 3) * 255).astype(np.uint8)
+    video_io.write_png(str(d / "im_0.jpg"), img)
+    (d / "lang.txt").write_text("push the cup to the plate\n")
+    (d / "data.txt").write_text("0 30.0 40.0\n2 90.0 70.0\n")
+    (d.parent / "shape.json").write_text(json.dumps([F, H, W]))
+
+
 def _port_state(towers, name):
     from test_torch_models import port
     from this_and_that_vdm_tpu_torch.models import controlnet, unet
@@ -103,8 +119,10 @@ def _port_state(towers, name):
     return port(module, towers["params"][name]).state_dict()
 
 
-def _load(root, mode, fsdp, frozen, optim="adam8bit"):
+def _load(root, mode, fsdp, frozen, optim="adam8bit", resident=False):
     z = np.load(root / f"{worker.scenario_name(mode, fsdp, frozen, optim)}.npz")
+    if resident:
+        return list(z["resident"]), int(z["whole"]), int(z["leaves"])
     return list(z["losses"]), list(z["norms"]), {k[2:]: z[k] for k in z.files
                                                  if k.startswith("p.")}
 
@@ -121,7 +139,7 @@ def _rel(a, b):
 def test_two_ranks_match_one_process_at_the_global_batch(run, mode, fsdp, optim):
     root, _, _, refs = run
     losses, norms, params = _load(root, mode, fsdp, "replicated", optim)
-    ref_losses, ref_norms, ref_params, _ = refs[(mode, optim)]
+    ref_losses, ref_norms, ref_params = refs[(mode, optim)][:3]
     assert len(losses) == worker.STEPS == len(ref_losses)
     for got, want in zip(losses + norms, ref_losses + ref_norms):
         assert np.isfinite(got) and _rel(got, want) <= 5e-3, (got, want)
@@ -139,6 +157,41 @@ def test_frozen_towers_split_over_fsdp_match_replicated(run):
         assert _rel(got, want) <= 1e-4, (got, want)
 
 
+@pytest.mark.parametrize("mode,fsdp,frozen,optim", [s for s in SCENARIOS],
+                         ids=[worker.scenario_name(*s) for s in SCENARIOS])
+def test_ranks_hold_their_share_of_the_trainable_parameters_between_steps(run, mode, fsdp,
+                                                                          frozen, optim):
+    """ZeRO-3: a rank's parameter storage between steps is at most 1/fsdp
+    of the whole model plus one padding block a leaf (under dp alone, every
+    rank holds the whole model)."""
+    resident, whole, leaves = _load(run[0], mode, fsdp, frozen, optim, resident=True)
+    assert len(resident) == 2
+    for got in resident:
+        assert whole / fsdp <= got <= whole / fsdp + leaves * 256 * 4, (got, whole, leaves)
+
+
+def test_validation_render_from_sharded_models_equals_one_process(run):
+    """Rank 0's render inside the collective whole-parameters context at
+    fsdp 2 equals the one-process render of the same parameters."""
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    root, states, _, _ = run
+    name = worker.scenario_name("vgl", 2, "replicated", "adam8bit")
+    params = _load(root, "vgl", 2, "replicated")[2]
+    model, u, towers = worker.build(states, "vgl")
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(torch.from_numpy(params[k]))
+    want = worker.validate(model, u, towers, "vgl", str(root / "val"), str(root / "one"))
+    got_dir = root / f"{name}_render" / "step_1" / "v0"
+    assert [os.path.basename(w) for w in want] == ["v0"]
+    got = video_io.load_frames_dir(str(got_dir))
+    ref = video_io.load_frames_dir(want[0])
+    assert len(got) == F and got[0].shape == (H, W, 3)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("optim", ["adam8bit", "pf_acc"],
                          ids=["adam8bit", "partial-accumulated"])
 def test_checkpoint_written_at_world_two_resumes_at_world_one(run, optim):
@@ -154,8 +207,8 @@ def test_checkpoint_written_at_world_two_resumes_at_world_one(run, optim):
     else:  # the accumulator holds every leaf whole
         acc = saved["opt_state"].acc_grads
         assert all(acc[k].shape == p.shape for k, p in saved["params"].items())
-    losses, norms, params, state = worker.run_steps(states, data, "vgl", resume=path, first=1,
-                                                    optim=optim)
+    losses, norms, params, state, _ = worker.run_steps(states, data, "vgl", resume=path,
+                                                       first=1, optim=optim)
     assert state.step == 2
     want_losses, want_norms, want = _load(root, "vgl", 2, "replicated", optim)
     assert _rel(losses[0], want_losses[1]) <= 5e-3 and _rel(norms[0], want_norms[1]) <= 5e-3

@@ -121,15 +121,14 @@ def test_unreadable_frames_raise_with_the_first_path(tree, tmp_path):
     bad = str(tmp_path / "bad.jpg")
     with open(bad, "wb") as f:
         f.write(b"not an image")
-    prog = str(tmp_path / "prog.jpg")
-    with open(prog, "wb") as f:
-        f.write(cv2.imencode(".jpg", goldens.source_image(70, *ORIG),
-                             [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
+    arith = str(tmp_path / "arith.jpg")  # an arithmetic-coded frame header
+    with open(arith, "wb") as f:
+        f.write(goldens.refused_file(70, *ORIG, 0xC9))
     paths = _paths(tree)
     with pytest.raises(ValueError, match="bad.jpg: neither PNG nor JPEG"):
-        native_loader.load_frames_native(paths[:2] + [bad, prog], HW)
-    with pytest.raises(ValueError, match="prog.jpg: progressive .SOF2."):
-        native_loader.load_frames_native(paths[:2] + [prog, bad], HW, num_threads=1)
+        native_loader.load_frames_native(paths[:2] + [bad, arith], HW)
+    with pytest.raises(ValueError, match="arith.jpg: arithmetic-coded sequential .SOF9."):
+        native_loader.load_frames_native(paths[:2] + [arith, bad], HW, num_threads=1)
     with pytest.raises(FileNotFoundError, match="absent.jpg"):
         native_loader.load_frames_native_u8([str(tmp_path / "absent.jpg")] + paths, HW)
 

@@ -82,7 +82,7 @@ def test_image_size_from_header(tmp_path, kind):
     assert image.image_size(os.path.join(inst, "im_0.jpg")) == (301, 457)
 
 
-@pytest.mark.parametrize("kind", ["jpeg", "png_cv2", "png_port"])
+@pytest.mark.parametrize("kind", ["jpeg", "progressive_jpeg", "png_cv2", "png_port"])
 def test_load_condition_matches_jax(tmp_path, kind):
     inst = _instance(tmp_path / kind, kind)
     got = rasterize.load_condition(inst, (64, 128), 14)
@@ -91,7 +91,7 @@ def test_load_condition_matches_jax(tmp_path, kind):
     assert got[1:] == want[1:] == (200, [0, 9], [(80.0, 120.0), (200.0, 300.5)])
 
 
-@pytest.mark.parametrize("kind", ["jpeg", "png_cv2", "png_port"])
+@pytest.mark.parametrize("kind", ["jpeg", "progressive_jpeg", "png_cv2", "png_port"])
 def test_instance_image_matches_jax(tmp_path, kind):
     inst = _instance(tmp_path / kind, kind)
     got = _load_instance_image(inst, 256, 384)

@@ -178,6 +178,18 @@ def test_contour_band_equals_cv2():
     assert differing == [0] * 7, differing
 
 
+@pytest.mark.parametrize("width", [1, 2, 3, 7])
+def test_contour_band_equals_cv2_at_widths_and_on_frame_noise(width):
+    """cv2's border following and thick outline, pixel for pixel, on the
+    test masks and on 480x640 masks of noise (thousands of contours, many at
+    the frame's edge, where cv2 clips the quads' outlines)."""
+    rng = np.random.default_rng(width)
+    masks = list(contour_masks()) + [rng.random((480, 640)) > t for t in (0.4, 0.7)]
+    differing = [int((painters.mask_contour(m, width) != jpaint.mask_contour(m, width)).sum())
+                 for m in masks]
+    assert differing == [0] * len(masks), differing
+
+
 def test_painters_match_jax():
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, (64, 48, 3), dtype=np.uint8)

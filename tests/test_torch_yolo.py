@@ -153,28 +153,33 @@ def test_cuda_device_without_a_card_raises(pair):
 
 
 @pytest.mark.parametrize("hw,imgsz", [((480, 640), 640), ((64, 96), 96), ((50, 70), 96),
-                                      ((70, 50), 64)])
+                                      ((70, 50), 64), ((480, 640), 416)])
 def test_letterbox_matches_jax(hw, imgsz):
     img = (np.random.RandomState(3).rand(*hw, 3) * 255).astype(np.uint8)
     got, r, pad = yolov8.letterbox_np(img, imgsz)
     want, jr, jpad = jyolo.letterbox_np(img, imgsz)
     assert (r, pad, got.shape, got.dtype) == (jr, jpad, want.shape, want.dtype)
-    if r == 1.0:  # no resize: the pads alone
-        assert np.array_equal(got, want)
-    else:  # the cv2-free INTER_LINEAR, one uint8 level at most
-        assert np.abs(got.astype(int) - want).max() <= 1
+    # the pads alone where r is 1, else the cv2-free INTER_LINEAR: cv2's bits
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("src,dst", [((50, 70), (69, 96)), ((480, 640), (320, 427)),
-                                     ((31, 17), (64, 35)), ((64, 96), (64, 50))])
+                                     ((31, 17), (64, 35)), ((64, 96), (64, 50)),
+                                     ((480, 640), (312, 416)), ((480, 640), (240, 320)),
+                                     ((1, 9), (4, 3)), ((37, 53), (111, 7))])
 def test_resize_linear_within_one_level_of_cv2(src, dst):
+    """Bit-equal to cv2's fixed-point INTER_LINEAR (so within one level),
+    shrinking and growing, at an exact 2x shrink (cv2's area path) and for
+    1 to 4 channels."""
     import cv2
 
-    img = (np.random.RandomState(4).rand(*src, 3) * 255).astype(np.uint8)
-    want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
-    got = resize_linear(img, *dst)
-    assert got.shape == want.shape and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want).max() <= 1
+    rng = np.random.RandomState(4)
+    for c in (3, 1, 2, 4):
+        img = (rng.rand(*src, c) * 255).astype(np.uint8)
+        want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR).reshape(dst + (c,))
+        got = resize_linear(img, *dst)
+        assert got.shape == want.shape and got.dtype == np.uint8
+        assert np.array_equal(got, want), (c, np.abs(got.astype(int) - want).max())
 
 
 def test_nms_and_scale_boxes_equal_jax():

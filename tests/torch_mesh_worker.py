@@ -7,10 +7,16 @@ GestureNet), ``data.npz`` (two global batches and the draws of each step)
 and ``scenarios.json``; each scenario ``[mode, fsdp, frozen, optim]`` trains
 two steps on the (dp, fsdp) mesh of the WORLD ranks and rank 0 writes
 ``DIR/<name>.npz`` (losses, gradient norms, the parameters after the last
-step).  ``optim`` ``"pf_acc"`` trains with ``partial_finetune`` and two
-accumulated steps (``multi_transform`` and ``multi_steps`` over the rank's
-rows).  The ``vgl`` fsdp 2 runs with replicated towers also write their
-collective checkpoint after step 1 to ``DIR/<name>_ckpt``.
+step, and each rank's bytes of trainable parameter storage between steps
+beside the whole model's bytes and its leaf count).  ``optim`` ``"pf_acc"``
+trains with ``partial_finetune`` and two accumulated steps
+(``multi_transform`` and ``multi_steps`` over the rank's rows).  The fsdp 2
+runs train under ``remat`` (the recompute gathers its units again).  The
+``vgl`` fsdp 2 runs with replicated towers also write their collective
+checkpoint after step 1 to ``DIR/<name>_ckpt``, and the ``adam8bit`` one
+renders the validation instance ``DIR/val`` after its last step, rank 0
+alone inside the collective whole-parameters context as ``train_loop``
+does, to ``DIR/<name>_render``.
 
 Imports the port only (no jax, no tests/conftest.py); the test process runs
 :func:`run_steps` itself for the one-process reference.
@@ -42,20 +48,21 @@ def scenario_name(mode, fsdp, frozen, optim):
     return f"{mode}_fsdp{fsdp}_{frozen}_{optim}"
 
 
-def build(states: dict, mode: str):
-    """(trainable model, unet, frozen towers) from the saved state dicts."""
+def build(states: dict, mode: str, remat: bool = False):
+    """(trainable model, unet, frozen towers) from the saved state dicts;
+    ``remat``: the UNet and GestureNet checkpoint their blocks."""
     towers = dict(vae=vae.AutoencoderKLTemporalDecoder(vae.VAEConfig.tiny()),
                   image_encoder=clip.CLIPVisionModelWithProjection(clip.CLIPVisionConfig(**VIS)),
                   text_encoder=clip.CLIPTextModel(clip.CLIPTextConfig(**TXT)))
     for k, m in towers.items():
         m.load_state_dict(states[k])
         m.requires_grad_(False)
-    u = unet.UNetSpatioTemporalConditionModel(unet.UNetConfig.nano())
+    u = unet.UNetSpatioTemporalConditionModel(unet.UNetConfig.nano(remat))
     u.load_state_dict(states["unet"])
     if mode == "vl":
         return u.train(), u, towers
     u.requires_grad_(False)
-    cn = controlnet.ControlNetModel(controlnet.ControlNetConfig.nano())
+    cn = controlnet.ControlNetModel(controlnet.ControlNetConfig.nano(remat))
     cn.load_state_dict(states["controlnet"])
     return cn.train(), u, towers
 
@@ -80,11 +87,14 @@ def batch_and_draws(data, i: int, mode: str):
 
 
 def run_steps(states, data, mode, mesh=None, frozen="replicated", ckpt_dir=None,
-              resume=None, first=0, optim="adam8bit"):
+              resume=None, first=0, optim="adam8bit", remat=False, render=None):
     """Steps ``first``..STEPS-1 of ``mode`` on ``mesh`` (None: one process,
-    the global batch), from the checkpoint ``resume`` if given -> (losses,
-    grad norms, final params, state)."""
-    model, u, towers = build(states, mode)
+    the global batch), from the checkpoint ``resume`` if given; ``render``:
+    ``(instances dir, output dir)`` of a validation render after the last
+    step (the dir's ``shape.json``: frames, height, width) -> (losses, grad
+    norms, final params, state, trainable parameter bytes at rest after the
+    last step)."""
+    model, u, towers = build(states, mode, remat)
     if frozen == "fsdp":
         parallel.shard_frozen(towers["vae"], mesh, methods=("encode_mode", "decode"))
         parallel.shard_frozen(towers["image_encoder"], mesh)
@@ -105,8 +115,34 @@ def run_steps(states, data, mode, mesh=None, frozen="replicated", ckpt_dir=None,
         norms.append(float(m["grad_norm"]))
         if ckpt_dir is not None and i == 0:
             ckpt.save_checkpoint(ckpt_dir, state.step, state)
-    params = {k: p.detach().numpy().copy() for k, p in state.params.items()}
-    return losses, norms, params, state
+    assert all(p.grad is None for p in state.params.values())
+    resident = (state.rows.resident_bytes() if state.rows is not None
+                else sum(p.numel() * 4 for p in state.params.values()))
+    with state.whole_params():  # collective on a mesh: the rows gathered whole
+        params = {k: p.detach().numpy().copy() for k, p in state.params.items()}
+        if render is not None and parallel.is_main_process():
+            validate(model, u, towers, mode, *render)
+        if mesh is not None:
+            torch.distributed.barrier()
+    return losses, norms, params, state, resident
+
+
+def validate(model, u, towers, mode, instances, out):
+    """The validation render of ``train_loop`` (one 1-step instance at the
+    batch's size) from the live models."""
+    from this_and_that_vdm_tpu_torch.pipelines import (StableVideoDiffusionControlNetPipeline,
+                                                       StableVideoDiffusionPipeline)
+    from this_and_that_vdm_tpu_torch.training import validation
+
+    kw = dict(unet=u, vae=towers["vae"], image_encoder=towers["image_encoder"],
+              text_encoder=towers["text_encoder"])
+    pipe = (StableVideoDiffusionPipeline(**kw) if mode == "vl"
+            else StableVideoDiffusionControlNetPipeline(controlnet=model, **kw))
+    frames, height, width = json.load(open(os.path.join(instances, "shape.json")))
+    return validation.render_validation(1, out, pipe, instances,
+                                        lambda s: np.zeros((1, TXT["max_positions"]), np.int64),
+                                        mode=mode, num_frames=frames, height=height, width=width,
+                                        num_inference_steps=1)
 
 
 def main():
@@ -123,11 +159,17 @@ def main():
         mesh = parallel.make_mesh(fsdp=fsdp)
         name = scenario_name(mode, fsdp, frozen, optim)
         save = mode == "vgl" and fsdp == 2 and frozen == "replicated"
-        losses, norms, params, _ = run_steps(
+        render = ((os.path.join(root, "val"), os.path.join(root, f"{name}_render"))
+                  if save and optim == "adam8bit" else None)
+        losses, norms, params, state, resident = run_steps(
             states, data, mode, mesh, frozen, os.path.join(root, f"{name}_ckpt") if save else None,
-            optim=optim)
+            optim=optim, remat=fsdp > 1, render=render)
+        every = [None] * world
+        torch.distributed.all_gather_object(every, resident)
         if parallel.is_main_process():
             np.savez(os.path.join(root, f"{name}.npz"), losses=losses, norms=norms,
+                     resident=every, leaves=len(params),
+                     whole=sum(v.size * v.itemsize for v in params.values()),
                      **{f"p.{k}": v for k, v in params.items()})
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()

@@ -3,7 +3,8 @@
 //
 // jpeg_decode.cpp: what cv2.imread(path, IMREAD_COLOR) computes with
 //   libjpeg-turbo's defaults (islow IDCT, fancy upsampling, fixed-point
-//   YCbCr->RGB), for baseline and extended-sequential Huffman streams.
+//   YCbCr->RGB), for baseline, extended-sequential and progressive Huffman
+//   streams.
 // jpeg_encode.cpp: the bytes cv2.imwrite writes for a .jpg at its defaults
 //   (JFIF 1.01, quality 95, 4:2:0, islow FDCT, standard Huffman tables).
 // png_decode.cpp: 8-bit grey / RGB / RGBA PNG (the frames some trees hold
@@ -36,8 +37,11 @@ struct Rgb {
 Rgb jpeg_decode(const uint8_t* data, size_t n);
 
 // [h, w, c] uint8 (c = 3: RGB, c = 1: grey) -> the JPEG bytes cv2.imwrite
-// writes for the same pixels (given in BGR / grey).  Throws CodecError.
-std::vector<uint8_t> jpeg_encode(const uint8_t* px, int h, int w, int c);
+// writes for the same pixels (given in BGR / grey); with
+// scan_per_component (a test mode), an RGB image's components in three
+// non-interleaved scans instead.  Throws CodecError.
+std::vector<uint8_t> jpeg_encode(const uint8_t* px, int h, int w, int c,
+                                 bool scan_per_component = false);
 
 // PNG bytes -> RGB (grey replicated, alpha dropped).  Throws CodecError.
 Rgb png_decode(const uint8_t* data, size_t n);

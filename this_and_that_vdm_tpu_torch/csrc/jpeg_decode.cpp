@@ -1,10 +1,13 @@
 // JPEG decoder: the pixels cv2.imread(path, IMREAD_COLOR) returns (in RGB
 // order), computed from the algorithms libjpeg-turbo runs at its defaults:
 //
-// - baseline and extended-sequential Huffman frames (SOF0, SOF1), 8-bit
-//   samples, 1 or 3 components, interleaved or one component a scan;
-//   DQT / DHT anywhere before a scan, restart intervals (DRI, RSTn), APPn
-//   and COM skipped, the Adobe APP14 transform flag, any image size;
+// - baseline, extended-sequential and progressive Huffman frames (SOF0,
+//   SOF1, SOF2), 8-bit samples, 1 or 3 components, interleaved or one
+//   component a scan; progressive scans as jdphuff.c decodes them (spectral
+//   selection, successive approximation, DC and AC first and refinement
+//   scans, EOB runs), every scan's coefficients kept until the end; DQT /
+//   DHT anywhere before a scan, restart intervals (DRI, RSTn), APPn and COM
+//   skipped, the Adobe APP14 transform flag, any image size;
 // - the islow integer IDCT (CONST_BITS 13, PASS1_BITS 2) with its
 //   range-limit table (values wrap modulo 1024 before the clamp);
 // - fancy upsampling: the triangular filter of h2v1 / h1v2 / h2v2 with
@@ -16,8 +19,11 @@
 //   replicated; an Adobe transform-0 or 'R','G','B' stream copied;
 // - the EXIF orientation applied as cv2.imread applies it.
 //
-// Refused with a CodecError naming the marker: progressive, lossless,
-// arithmetic-coded, hierarchical and 12-bit streams.  A truncated stream
+// Refused with a CodecError naming the marker: lossless, arithmetic-coded,
+// hierarchical and 12-bit streams, and a progressive stream whose scans
+// leave one of the first ten coefficients of a component inexact (there
+// libjpeg smooths the blocks; every complete progressive file, as cv2 and
+// libjpeg write them, refines each coefficient to its last bit).  A truncated stream
 // (entropy data that ends early, or no EOI) raises: cv2.imread returns None
 // for it, where libjpeg alone would fill the rest with grey after a warning.
 
@@ -153,6 +159,7 @@ struct Component {
   int dw = 0, dh = 0;  // downsampled width / height (ceil of the image's)
   int td = 0, ta = 0;
   bool scanned = false;
+  int coef_bits[64];  // progressive: the Al of the last scan of each coefficient, -1 unseen
   uint16_t quant[64] = {};
   std::vector<int16_t> coef;
   std::vector<uint8_t> plane;  // IDCT output, bw * 8 wide
@@ -376,7 +383,6 @@ Rgb orient(Rgb img, int o) {
 
 const char* refused_frame(int m) {
   switch (m) {
-    case 0xC2: return "progressive (SOF2)";
     case 0xC3: return "lossless (SOF3)";
     case 0xC5: return "differential sequential (SOF5)";
     case 0xC6: return "differential progressive (SOF6)";
@@ -403,7 +409,8 @@ class Decoder {
       if (m == 0xD9) break;  // EOI
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
       if (const char* what = refused_frame(m))
-        fail(std::string(what) + " JPEG is not supported (baseline and extended-sequential only)");
+        fail(std::string(what) + " JPEG is not supported (baseline, extended-sequential and "
+             "progressive Huffman only)");
       if (m == 0xCC) fail("arithmetic-coding conditioning (DAC) is not supported");
       if (m == 0xDC) fail("DNL marker is not supported");
       const uint8_t* seg = segment();
@@ -411,7 +418,11 @@ class Decoder {
       const uint8_t* body = seg + 2;
       switch (m) {
         case 0xC0:
-        case 0xC1: frame(body, len); break;
+        case 0xC1:
+        case 0xC2:
+          progressive_ = m == 0xC2;
+          frame(body, len);
+          break;
         case 0xC4: dht(body, len); break;
         case 0xDB: dqt(body, len); break;
         case 0xDD:
@@ -440,6 +451,7 @@ class Decoder {
     if (!frame_seen_) fail("no frame header (SOF) before EOI");
     for (const Component& c : comps_)
       if (!c.scanned) fail("truncated JPEG: a component was never scanned");
+    if (progressive_) check_smoothing();
     return orient(output(), orientation_);
   }
 
@@ -451,6 +463,8 @@ class Decoder {
   const uint8_t* end_;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   bool frame_seen_ = false, saw_jfif_ = false, saw_adobe_ = false, saw_exif_ = false;
+  bool progressive_ = false;
+  unsigned eobrun_ = 0;  // blocks left in the current end-of-band run
   int adobe_transform_ = -1, orientation_ = 1;
   unsigned restart_interval_ = 0;
   std::vector<Component> comps_;
@@ -508,6 +522,7 @@ class Decoder {
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
       c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     frame_seen_ = true;
   }
@@ -553,16 +568,30 @@ class Decoder {
       if (!c) fail("scan names an unknown component");
       c->td = b[2 + 2 * i] >> 4;
       c->ta = b[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined || !ac_[c->ta].defined)
+      in.push_back(c);
+    }
+    const uint8_t* t = b + 1 + 2 * ns;
+    const int ss = t[0], se = t[1], ah = t[2] >> 4, al = t[2] & 15;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || t[2] != 0) fail("bad spectral selection for a sequential scan");
+    } else {  // start_pass_phuff_decoder's checks
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13 || bad) fail("bad progressive scan parameters");
+    }
+    const bool dc_band = ss == 0, need_dc = !progressive_ || (dc_band && ah == 0),
+               need_ac = !progressive_ || !dc_band;
+    for (Component* c : in) {
+      if (c->td > 3 || c->ta > 3 || (need_dc && !dc_[c->td].defined) ||
+          (need_ac && !ac_[c->ta].defined))
         fail("scan uses an undefined Huffman table");
       if (!c->scanned) {  // the quantisation table is latched at its first scan
         if (!qt_defined_[c->tq]) fail("component uses an undefined quantisation table");
         std::memcpy(c->quant, qt_[c->tq], sizeof(c->quant));
       }
-      in.push_back(c);
+      if (progressive_)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
     }
-    const uint8_t* t = b + 1 + 2 * ns;
-    if (t[0] != 0 || t[1] != 63 || t[2] != 0) fail("bad spectral selection for a sequential scan");
     int blocks = 0;
     for (Component* c : in) blocks += ns == 1 ? 1 : c->h * c->v;
     if (blocks > 10) fail("too many blocks in an MCU");
@@ -577,6 +606,7 @@ class Decoder {
       my_n = mcuy_;
     }
     int pred[4] = {0, 0, 0, 0};
+    eobrun_ = 0;
     unsigned to_go = restart_interval_;
     int next_rst = 0;
     const long total = static_cast<long>(mx_n) * my_n;
@@ -586,6 +616,7 @@ class Decoder {
           restart(bits, next_rst);
           next_rst = (next_rst + 1) & 7;
           std::fill(pred, pred + 4, 0);
+          eobrun_ = 0;
           to_go = restart_interval_;
         }
         --to_go;
@@ -597,7 +628,17 @@ class Decoder {
         for (int j = 0; j < bh; ++j)
           for (int i = 0; i < bw; ++i) {
             int bx = mx * bw + i, by = my * bh + j;
-            block(bits, *c, pred[ci], &c->coef[(static_cast<size_t>(by) * c->bw + bx) * 64]);
+            int16_t* out = &c->coef[(static_cast<size_t>(by) * c->bw + bx) * 64];
+            if (!progressive_)
+              block(bits, *c, pred[ci], out);
+            else if (dc_band && ah == 0)
+              dc_first(bits, *c, pred[ci], out, al);
+            else if (dc_band)
+              out[0] = static_cast<int16_t>(out[0] | (bits.get(1) << al));
+            else if (ah == 0)
+              ac_first(bits, *c, out, ss, se, al);
+            else
+              ac_refine(bits, *c, out, ss, se, al);
           }
       }
       if (bits.overrun) fail("truncated JPEG: the entropy-coded data ends early");
@@ -625,6 +666,95 @@ class Decoder {
         k += 15;
       }
     }
+  }
+
+  // jdphuff.c decode_mcu_DC_first.
+  void dc_first(BitReader& bits, const Component& c, int& pred, int16_t* out, int al) {
+    int s = bits.decode(dc_[c.td]);
+    if (s > 16) fail("corrupt Huffman data");
+    pred += BitReader::extend(bits.get(s), s);
+    out[0] = static_cast<int16_t>(static_cast<unsigned>(pred) << al);
+  }
+
+  // jdphuff.c decode_mcu_AC_first: one band of a block, or one block of an
+  // end-of-band run.
+  void ac_first(BitReader& bits, const Component& c, int16_t* out, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const Huffman& ac = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = bits.decode(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt Huffman data");
+        out[kNatural[k]] =
+            static_cast<int16_t>(static_cast<unsigned>(BitReader::extend(bits.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1u << r;
+        if (r) eobrun_ += bits.get(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine: a correction bit for every nonzero
+  // coefficient of the band passed over, new coefficients of +-2^al.
+  void ac_refine(BitReader& bits, const Component& c, int16_t* out, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t& v) {
+      if (bits.get(1) && (v & p1) == 0) v = static_cast<int16_t>(v + (v >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+      const Huffman& ac = ac_[c.ta];
+      for (; k <= se; ++k) {
+        int rs = bits.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a new coefficient of size 1 (libjpeg warns on another size)
+          s = bits.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun_ = 1u << r;
+          if (r) eobrun_ += bits.get(r);
+          break;  // the rest of the block is the end-of-band run's
+        }
+        do {
+          int16_t& v = out[kNatural[k]];
+          if (v != 0) {
+            correct(v);
+          } else if (--r < 0) {
+            break;  // the zero coefficient that becomes nonzero
+          }
+          ++k;
+        } while (k <= se);
+        if (s) out[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t& v = out[kNatural[k]];
+        if (v != 0) correct(v);
+      }
+      --eobrun_;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: where a component's DC is known and one of its
+  // first ten coefficients is inexact after the last scan, libjpeg smooths
+  // the blocks (do_block_smoothing, on by default); that is not done here.
+  void check_smoothing() const {
+    for (const Component& c : comps_)
+      if (c.coef_bits[0] < 0) return;
+    for (const Component& c : comps_)
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0)
+          fail("progressive JPEG whose scans leave coefficients inexact (libjpeg's block "
+               "smoothing) is not supported");
   }
 
   void restart(BitReader& bits, int expect) {

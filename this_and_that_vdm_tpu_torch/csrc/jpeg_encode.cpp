@@ -17,7 +17,9 @@
 //   last byte filled with one bits.
 //
 // A grey [h, w] image is written as one component at 1x1, as cv2 writes a
-// 2-D array.
+// 2-D array.  ``scan_per_component`` (a test mode: no writer the repo runs
+// makes such files) writes an RGB image's three components in three
+// non-interleaved scans, each over the component's own block grid.
 
 #include <cstring>
 
@@ -281,7 +283,7 @@ void put_dht(std::vector<uint8_t>& o, int index, const uint8_t* bits, const uint
 
 }  // namespace
 
-std::vector<uint8_t> jpeg_encode(const uint8_t* px, int h, int w, int c) {
+std::vector<uint8_t> jpeg_encode(const uint8_t* px, int h, int w, int c, bool scan_per_component) {
   if (h < 1 || w < 1 || h > 65535 || w > 65535) throw CodecError("JPEG size out of range");
   if (c != 1 && c != 3) throw CodecError("JPEG encoder takes RGB or grey images");
   const bool color = c == 3;
@@ -392,19 +394,42 @@ std::vector<uint8_t> jpeg_encode(const uint8_t* px, int h, int w, int c) {
     put_dht(o, 0x01, kDcChromaBits, kDcVals);
     put_dht(o, 0x11, kAcChromaBits, kAcChromaVals);
   }
-  o.push_back(0xFF);
-  o.push_back(0xDA);
-  put16(o, 6 + 2 * c);
-  o.push_back(static_cast<uint8_t>(c));
-  for (int k = 0; k < c; ++k) {
-    o.push_back(static_cast<uint8_t>(k + 1));
-    o.push_back(k == 0 ? 0x00 : 0x11);
+  auto put_sos = [&o](int first, int count) {
+    o.push_back(0xFF);
+    o.push_back(0xDA);
+    put16(o, 6 + 2 * count);
+    o.push_back(static_cast<uint8_t>(count));
+    for (int k = first; k < first + count; ++k) {
+      o.push_back(static_cast<uint8_t>(k + 1));
+      o.push_back(k == 0 ? 0x00 : 0x11);
+    }
+    o.insert(o.end(), {0x00, 0x3F, 0x00});
+  };
+  int16_t blk[64];
+  if (color && scan_per_component) {
+    // each scan covers the component's blocks of real samples, row by row
+    const int dims[3][2] = {{(w + 7) / 8, (h + 7) / 8},
+                            {((w + 1) / 2 + 7) / 8, ((h + 1) / 2 + 7) / 8},
+                            {((w + 1) / 2 + 7) / 8, ((h + 1) / 2 + 7) / 8}};
+    for (int k = 0; k < 3; ++k) {
+      put_sos(k, 1);
+      BitWriter bw(o);
+      int last_dc = 0;
+      for (int by = 0; by < dims[k][1]; ++by)
+        for (int bx = 0; bx < dims[k][0]; ++bx) {
+          forward_block(planes[k], bx, by, k ? chroma : luma, blk);
+          encode_block(bw, blk, last_dc, k ? dc1 : dc0, k ? ac1 : ac0);
+        }
+      bw.flush();
+    }
+    o.push_back(0xFF);
+    o.push_back(0xD9);
+    return o;
   }
-  o.insert(o.end(), {0x00, 0x3F, 0x00});
+  put_sos(0, c);
 
   BitWriter bw(o);
   int last_dc[3] = {0, 0, 0};
-  int16_t blk[64];
   if (!color) {
     for (int by = 0; by < mcuy; ++by)
       for (int bx = 0; bx < mcux; ++bx) {

@@ -206,11 +206,12 @@ int ttv_jpeg_decode(const uint8_t* data, long n, uint8_t** out, int* h, int* w, 
 }
 
 // [h, w, c] uint8 (RGB or grey) -> JPEG bytes in a buffer the caller frees
-// with ttv_free; returns the byte count, or -1.
-long ttv_jpeg_encode(const uint8_t* px, int h, int w, int c, uint8_t** out, char* err,
-                     int errlen) {
+// with ttv_free; returns the byte count, or -1.  ``scan_per_component``:
+// the encoder's test mode (three non-interleaved scans).
+long ttv_jpeg_encode(const uint8_t* px, int h, int w, int c, int scan_per_component,
+                     uint8_t** out, char* err, int errlen) {
   try {
-    std::vector<uint8_t> bytes = ttv::jpeg_encode(px, h, w, c);
+    std::vector<uint8_t> bytes = ttv::jpeg_encode(px, h, w, c, scan_per_component != 0);
     *out = static_cast<uint8_t*>(std::malloc(bytes.size()));
     if (!*out) throw ttv::CodecError("out of memory");
     std::memcpy(*out, bytes.data(), bytes.size());

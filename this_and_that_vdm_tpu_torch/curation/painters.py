@@ -8,12 +8,9 @@ utils/optical_flow_utils.py.  Two drawing routines of cv2 are written out:
   * ``filled_circle``: ``cv2.circle(..., thickness=-1)`` with the default
     8-connected line, which runs cv2's integer midpoint loop (drawing.cpp
     ``Circle``), so the disc is the same pixel for pixel;
-  * ``mask_contour``: ``findContours(RETR_EXTERNAL)`` + ``drawContours``
-    as the outer border pixels of each component (mask pixels with a
-    4-neighbour in the background that reaches the image's edge) dilated by
-    cv2's own disc.  At the painters' width 3 (and at 1, 4 and 5) the band
-    equals cv2's on the test masks: 0 pixels differ (tests/
-    test_torch_tracking.py); at width 2 and 7 it does not.
+  * ``mask_contour``: ``findContours(RETR_EXTERNAL)`` + ``drawContours``,
+    cv2's border following and thick outline (``curation/contours.py``),
+    equal to cv2's band at every width.
 """
 
 from __future__ import annotations
@@ -21,6 +18,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from .contours import draw_contours, find_external_contours
 
 # Detectron-style colours (fractions of 255), indexed by object id
 # (reference tools/painter.py colormap()).
@@ -73,45 +72,12 @@ def filled_circle(canvas: np.ndarray, center: Tuple[int, int], radius: int, valu
     return canvas
 
 
-def _spread_rows(out: np.ndarray, bg: np.ndarray) -> np.ndarray:
-    """Every background run of a row (4-connected along it) that holds an
-    ``out`` pixel becomes ``out`` entirely."""
-    start = bg.copy()
-    start[:, 1:] &= ~bg[:, :-1]
-    run = np.cumsum(start.ravel()) * bg.ravel()  # run number on background, 0 elsewhere
-    hit = np.bincount(run, weights=(out & bg).ravel(), minlength=int(run.max()) + 1) > 0
-    hit[0] = False
-    return hit[run].reshape(bg.shape)
-
-
-def _outside(mask: np.ndarray) -> np.ndarray:
-    """Background pixels 4-connected to the image's border (the background
-    that surrounds the components; holes are not part of it), padded by one
-    pixel: whole runs of rows and of columns at a time, until nothing grows."""
-    bg = np.pad(~mask, 1, constant_values=True)
-    out = np.zeros_like(bg)
-    out[0, :] = out[-1, :] = out[:, 0] = out[:, -1] = True
-    while True:
-        grown = _spread_rows(_spread_rows(out, bg).T, bg.T).T
-        if np.array_equal(grown, out):
-            return out
-        out = grown
-
-
 def mask_contour(mask: np.ndarray, width: int = 3) -> np.ndarray:
     """Boolean band of the outer contours of a binary mask, ``width`` wide:
-    the outer border pixels dilated by the disc ``filled_circle`` draws of
-    radius 0 (width 1) or ``(width + 1) // 2``."""
+    cv2's ``findContours(RETR_EXTERNAL, CHAIN_APPROX_NONE)`` +
+    ``drawContours(..., width)``, pixel for pixel (``curation/contours.py``)."""
     m = np.asarray(mask, bool)
-    out = _outside(m)
-    border = m & (out[:-2, 1:-1] | out[2:, 1:-1] | out[1:-1, :-2] | out[1:-1, 2:])
-    r = 0 if width <= 1 else (width + 1) // 2
-    disc = filled_circle(np.zeros((2 * r + 1, 2 * r + 1), np.uint8), (r, r), r, 1)
-    h, w = m.shape
-    band = np.zeros((h + 2 * r, w + 2 * r), bool)
-    for dy, dx in zip(*np.nonzero(disc)):
-        band[dy:dy + h, dx:dx + w] |= border
-    return band[r:r + h, r:r + w]
+    return draw_contours(m.shape, find_external_contours(m), width)
 
 
 def mask_painter(image_rgb: np.ndarray, mask: np.ndarray, mask_color: int = 5,

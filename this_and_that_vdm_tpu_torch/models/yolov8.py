@@ -9,7 +9,8 @@ with ``load_state_dict(strict=True)`` and no key map.  Convolutions run
 NCHW (cuDNN's layout); the model takes ``[B, H, W, 3]`` in [0, 1] and
 returns ``[B, N, 4 + nc]``: xywh boxes in input pixels and class
 probabilities.  Letterboxing and NMS are host numpy, as in ultralytics; the
-letterbox resize needs no cv2 (``data/image.resize_linear``).
+letterbox resize needs no cv2 (``data/image.resize_linear``, cv2's
+INTER_LINEAR bit for bit).
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@
 from .mesh import (
     BlockRows,
     Mesh,
+    ShardedParams,
     distributed_init,
     global_batch,
     host_replicated,
@@ -16,6 +17,7 @@ from .mesh import (
     shard_batch,
     shard_frozen,
     shard_leading,
+    shard_module,
     shard_params,
     shard_state,
 )
@@ -23,6 +25,7 @@ from .mesh import (
 __all__ = [
     "BlockRows",
     "Mesh",
+    "ShardedParams",
     "distributed_init",
     "global_batch",
     "host_replicated",
@@ -35,6 +38,7 @@ __all__ = [
     "shard_batch",
     "shard_frozen",
     "shard_leading",
+    "shard_module",
     "shard_params",
     "shard_state",
 ]

@@ -9,13 +9,18 @@ dcn outermost, so only the outer gradient reduction crosses hosts.  Every
 axis carries data: each rank trains on its own rows of the global batch.
 
 * ``dp`` / ``dcn``: the gradients of the ranks are averaged.
-* ``fsdp``: the trainable state is split over the fsdp group on whole
-  256-element block rows of the 8-bit optimizer's arena (the numbering of
-  ``ops/adam8bit.leaf_blocks``, the JAX rule of ``ops/adam8bit_pallas.py``):
-  the gradient bucket is reduce-scattered, each rank updates its rows (K4 on
-  its blocks), and the new parameters are all-gathered.  Parameters stay
-  whole between steps (ZeRO-2); JAX also keeps them sharded (ZeRO-3).
-  :func:`shard_params` gives a rank's rows (:class:`BlockRows`).
+* ``fsdp``: the trainable state is split over the fsdp group (ZeRO-3, as
+  the JAX mesh keeps it): parameters, gradients and optimizer state.  The
+  trainable model is cut into units (its blocks, :func:`_blocks`, and the
+  root's other leaves); a unit's leaves are numbered in 256-element blocks
+  as the 8-bit optimizer's arena numbers them (``ops/adam8bit.leaf_blocks``,
+  the JAX rule of ``ops/adam8bit_pallas.py``) and cut into ``fsdp`` equal
+  runs of whole blocks (:func:`shard_params`, :class:`BlockRows`), so K4's
+  per-block absmax never straddles two ranks.  A rank keeps its run of
+  every unit at rest; a unit is all-gathered for its forward and its
+  backward and freed after, and its gradients are reduce-scattered into the
+  rank's rows as soon as they are complete (:func:`shard_module`,
+  :class:`ShardedParams`).
 
 Without a process group (no launcher environment) everything is one rank:
 the mesh is ``1 x 1`` and the training step takes its one-device path.
@@ -29,6 +34,7 @@ The pipelines keep one replica of each model per distinct device
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -37,6 +43,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd.graph import register_multi_grad_hook
+from torch.utils._pytree import tree_leaves
 
 from ..ops.adam8bit import leaf_blocks, leaf_rows
 from ..ops.quant8 import BLOCK
@@ -294,10 +302,6 @@ class BlockRows:
         """Element offset of a piece in the rank's rows buffer."""
         return (self.first[self._pos[name]] + self.pieces[name][0] // BLOCK - self.lo) * BLOCK
 
-    def take(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each leaf's piece: a flat view of the whole leaf."""
-        return {k: tree[k].reshape(-1)[e0:e1] for k, (e0, e1) in self.pieces.items()}
-
     def views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The pieces as views of a rows buffer (``rows * 256`` elements)."""
         return {k: buf[self.offset(k):self.offset(k) + e1 - e0]
@@ -312,13 +316,6 @@ class BlockRows:
             buf[self.first[i] * BLOCK:self.first[i] * BLOCK + self.numels[i]] = \
                 tree[k].detach().reshape(-1)
         return buf
-
-    def unpack(self, buf: torch.Tensor, tree: Dict[str, torch.Tensor]) -> None:
-        """Copy every leaf out of a buffer of every part's rows, in place."""
-        with torch.no_grad():
-            for i, k in enumerate(self.names):
-                s = self.first[i] * BLOCK
-                tree[k].copy_(buf[s:s + self.numels[i]].view(self.shapes[i]))
 
 
 def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh,
@@ -357,7 +354,7 @@ def _map_leaf_dicts(tree, names, fn):
     return tree
 
 
-def shard_state(tree, rows: BlockRows):
+def shard_state(tree, rows: "ShardedParams"):
     """This rank's rows of a one-rank optimizer state (as a checkpoint holds
     it): element tensors cut to the pieces, block-quantised leaves
     (``(q, scale)``) to the pieces' blocks."""
@@ -376,53 +373,299 @@ def shard_state(tree, rows: BlockRows):
     return _map_leaf_dicts(tree, set(rows.names), cut)
 
 
-def host_replicated(tree, rows: Optional[BlockRows] = None):
+def host_replicated(tree, rows: Optional["ShardedParams"] = None):
     """The one-rank form of an optimizer state that holds this rank's rows
     (``rows``), on the CPU: a COLLECTIVE over the fsdp group (every rank
-    calls it at the same point, every rank gets the whole tree).  Identity
-    without ``rows`` or a process group."""
+    calls it at the same point, every rank gets the whole tree), a unit at
+    a time.  Identity without ``rows`` or a process group."""
     if rows is None or not _distributed():
         return tree
 
+    def whole(d):
+        out = {}
+        for r in (u.rows for u in rows.units):
+            sub = {k: d[k] for k in r.names if k in d}
+            if sub:
+                out.update(_whole_rows(sub, r))
+        return {k: out[k] for k in d}
+
+    return _map_leaf_dicts(tree, set(rows.names), whole)
+
+
+def _whole_rows(d, rows: BlockRows):
+    """Whole leaves (on the CPU) from every part's pieces of ``d``, gathered
+    over ``rows.group``."""
     def gather(buf):
         full = buf.new_empty(rows.parts * buf.numel())
         dist.all_gather_into_tensor(full, buf, group=rows.group)
         return full
 
-    def whole(d):
-        k0 = next(iter(d))
-        v0 = d[k0]
-        dev = (v0.q if _is_blockq(v0) else v0).device
-        if _is_blockq(v0):
-            codes = torch.zeros(rows.rows * BLOCK, dtype=torch.uint8, device=dev)
-            scales = torch.zeros(rows.rows, dtype=torch.float32, device=dev)
-            for k, v in d.items():
-                b0, b1 = rows.blocks(k)
-                o = rows.offset(k) // BLOCK
-                codes[o * BLOCK:(o + b1 - b0) * BLOCK] = v.q.reshape(-1)
-                scales[o:o + b1 - b0] = v.scale
-            codes, scales = gather(codes).cpu(), gather(scales).cpu()
-            out = {}
-            for k, v in d.items():
-                i = rows._pos[k]
-                nb = -(-rows.numels[i] // BLOCK)
-                f = rows.first[i]
-                out[k] = type(v0)(codes[f * BLOCK:(f + nb) * BLOCK].clone(),
-                                  scales[f:f + nb].clone())
-            return out
-        buf = torch.zeros(rows.rows * BLOCK, dtype=v0.dtype, device=dev)
+    k0 = next(iter(d))
+    v0 = d[k0]
+    dev = (v0.q if _is_blockq(v0) else v0).device
+    if _is_blockq(v0):
+        codes = torch.zeros(rows.rows * BLOCK, dtype=torch.uint8, device=dev)
+        scales = torch.zeros(rows.rows, dtype=torch.float32, device=dev)
         for k, v in d.items():
-            o = rows.offset(k)
-            buf[o:o + v.numel()] = v
-        full = gather(buf).cpu()
+            b0, b1 = rows.blocks(k)
+            o = rows.offset(k) // BLOCK
+            codes[o * BLOCK:(o + b1 - b0) * BLOCK] = v.q.reshape(-1)
+            scales[o:o + b1 - b0] = v.scale
+        codes, scales = gather(codes).cpu(), gather(scales).cpu()
         out = {}
-        for k in d:
+        for k, v in d.items():
             i = rows._pos[k]
-            s = rows.first[i] * BLOCK
-            out[k] = full[s:s + rows.numels[i]].view(rows.shapes[i]).clone()
+            nb = -(-rows.numels[i] // BLOCK)
+            f = rows.first[i]
+            out[k] = type(v0)(codes[f * BLOCK:(f + nb) * BLOCK].clone(),
+                              scales[f:f + nb].clone())
         return out
+    buf = torch.zeros(rows.rows * BLOCK, dtype=v0.dtype, device=dev)
+    for k, v in d.items():
+        o = rows.offset(k)
+        buf[o:o + v.numel()] = v
+    full = gather(buf).cpu()
+    out = {}
+    for k in d:
+        i = rows._pos[k]
+        s = rows.first[i] * BLOCK
+        out[k] = full[s:s + rows.numels[i]].view(rows.shapes[i]).clone()
+    return out
 
-    return _map_leaf_dicts(tree, set(rows.names), whole)
+
+# ------------------------------------------------------------------ ZeRO-3
+
+def _in_backward() -> bool:
+    return torch._C._current_graph_task_id() != -1
+
+
+@dataclasses.dataclass
+class _Unit:
+    module: torch.nn.Module
+    names: List[str]
+    rows: BlockRows
+    base: int  # first block of the unit's run in the rank's rows
+    full: torch.Tensor = None  # every part's rows; the leaves are views of it
+    gathered: bool = False
+    ready: int = 0  # leaves whose gradient is complete in this backward
+    reduced: bool = False  # the unit's gradients are in this step's rows
+
+
+class ShardedParams:
+    """The trainable parameters of a module under fsdp, ZeRO-3: each rank
+    holds its rows of every unit between steps.
+
+    * ``arena``: the rank's rows of all units, one fp32 buffer (unit ``u``
+      at blocks ``[u.base, u.base + u.rows.rows)``); the optimizer updates
+      its pieces in place (:meth:`views`).
+    * Each parameter is a view of its unit's ``full`` buffer (every part's
+      rows), whose storage is empty at rest.  A forward pre-hook of the unit
+      all-gathers it, a post-hook frees it; a hook on the unit's outputs
+      gathers it again for the backward (and for the recompute of
+      ``remat``), and once every leaf of the unit has its gradient, the
+      gradients are packed, reduce-scattered into the rank's gradient rows
+      and freed, and so is the unit.  The parameters keep their identity and
+      shapes throughout.
+    * :meth:`whole` holds every unit gathered (collective), for whatever
+      reads the whole model between steps: validation renders, exports.
+
+    Every rank runs the same graph, so every rank issues the same gathers
+    and reduce-scatters in the same order.  With one part (``fsdp`` 1) the
+    rows are the whole units: the parameters are views of ``arena`` and
+    nothing is gathered or freed."""
+
+    def __init__(self, module: torch.nn.Module, mesh: Mesh):
+        named = dict(module.named_parameters())
+        self.names = list(named)
+        self.params = named
+        self.parts = mesh.shape["fsdp"]
+        self.group = mesh.group("fsdp")
+        self.grads: Optional[torch.Tensor] = None
+        self._pinned = 0
+        pos = {n: i for i, n in enumerate(self.names)}
+        by_id = {id(p): n for n, p in named.items()}
+        owned: set = set()
+        self.units: List[_Unit] = []
+        base = 0
+        for m in _blocks(module) + [module]:
+            names = sorted({by_id[id(p)] for p in m.parameters() if id(p) in by_id} - owned,
+                           key=pos.get)
+            if not names:
+                continue
+            owned.update(names)
+            rows = shard_params({n: named[n].detach() for n in names}, mesh)
+            self.units.append(_Unit(m, names, rows, base))
+            base += rows.rows
+        self.size = base
+        p0 = next(iter(named.values()))
+        if any(p.dtype != torch.float32 for p in named.values()):
+            raise ValueError("shard_module: the trainable parameters must be fp32")
+        self.arena = torch.zeros(self.size * BLOCK, dtype=torch.float32, device=p0.device)
+        self.pieces, self._offset = {}, {}
+        for u in self.units:
+            for k, e in u.rows.pieces.items():
+                self.pieces[k] = e
+                self._offset[k] = u.base * BLOCK + u.rows.offset(k)
+        self.pieces = {k: self.pieces[k] for k in self.names}
+        with torch.no_grad():
+            for k, v in self.views(self.arena).items():
+                e0, e1 = self.pieces[k]
+                v.copy_(named[k].detach().reshape(-1)[e0:e1])
+            for u in self.units:
+                self._point(u, self._shard(u) if self.parts == 1 else None)
+                u.gathered = True
+                self._free(u)
+                u.module.register_forward_pre_hook(self._pre_forward(u))
+                u.module.register_forward_hook(self._post_forward(u))
+                for k in u.names:
+                    named[k].register_post_accumulate_grad_hook(self._grad_ready(u))
+
+    # -- pieces of the rank's rows
+    def _shard(self, u: _Unit) -> torch.Tensor:
+        return self.arena[u.base * BLOCK:(u.base + u.rows.rows) * BLOCK]
+
+    def views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each leaf's piece as a view of a buffer laid out as ``arena``
+        (empty for a leaf outside the rank's rows)."""
+        return {k: buf[self._offset[k]:self._offset[k] + e1 - e0]
+                for k, (e0, e1) in self.pieces.items()}
+
+    def blocks(self, name: str) -> Tuple[int, int]:
+        """The piece of leaf ``name`` as blocks of the leaf: [b0, b1)."""
+        e0, e1 = self.pieces[name]
+        return e0 // BLOCK, -(-e1 // BLOCK)
+
+    # -- gather and free
+    def _point(self, u: _Unit, full: Optional[torch.Tensor] = None) -> None:
+        """Make the unit's parameters views of ``full`` (a new buffer of
+        every part's rows when None)."""
+        r = u.rows
+        u.full = full if full is not None else torch.empty(
+            self.parts * r.rows * BLOCK, dtype=torch.float32, device=self.arena.device)
+        for i, k in enumerate(u.names):
+            s = r.first[i] * BLOCK
+            self.params[k].data = u.full[s:s + r.numels[i]].view(r.shapes[i])
+
+    def _gather(self, u: _Unit) -> None:
+        if u.gathered:
+            return
+        u.full.untyped_storage().resize_(u.full.numel() * u.full.element_size())
+        dist.all_gather_into_tensor(u.full, self._shard(u), group=self.group)
+        u.gathered = True
+
+    def _free(self, u: _Unit) -> None:
+        if self.parts > 1 and u.gathered and not self._pinned:
+            if not u.full.untyped_storage().resizable():
+                # a reader pinned the storage (``Tensor.numpy`` does): give
+                # the parameters a buffer of their own
+                self._point(u)
+            u.full.untyped_storage().resize_(0)
+            u.gathered = False
+
+    def _pre_forward(self, u: _Unit):
+        def hook(module, args):
+            self._gather(u)
+        return hook
+
+    def _post_forward(self, u: _Unit):
+        def hook(module, args, out):
+            if _in_backward():  # the recompute of remat: the backward frees
+                return
+            if torch.is_grad_enabled():
+                ts = [t for t in tree_leaves(out)
+                      if isinstance(t, torch.Tensor) and t.requires_grad]
+                if ts:
+                    register_multi_grad_hook(ts, lambda _: self._gather(u), mode="any")
+            self._free(u)
+        return hook
+
+    def _grad_ready(self, u: _Unit):
+        def hook(p):
+            u.ready += 1
+            if u.ready == len(u.names):
+                self._reduce(u)
+        return hook
+
+    def _reduce(self, u: _Unit) -> None:
+        """The unit's whole gradients -> the rank's gradient rows (summed
+        over the fsdp group); the gradients and the unit are freed."""
+        if self.grads is None:
+            self.grads = torch.zeros_like(self.arena)
+        mine = self.grads[u.base * BLOCK:(u.base + u.rows.rows) * BLOCK]
+        grads = {}
+        for k in u.names:
+            p = self.params[k]
+            grads[k] = p.grad if p.grad is not None else torch.zeros(p.shape, device=p.device)
+        with torch.no_grad():
+            if self.parts == 1:
+                for k, v in u.rows.views(mine).items():
+                    v.copy_(grads[k].reshape(-1))
+            else:
+                dist.reduce_scatter_tensor(mine, u.rows.pack(grads), group=self.group)
+        for k in u.names:
+            self.params[k].grad = None
+        u.ready, u.reduced = 0, True
+        self._free(u)
+
+    def take_grads(self) -> torch.Tensor:
+        """After the backward: the rank's gradient rows of every unit (laid
+        out as ``arena``), summed over the fsdp group.  A unit with a leaf
+        the backward did not reach is reduced here, that leaf's gradient
+        zero (every rank reduces it: the graph is the same)."""
+        for u in self.units:
+            if not u.reduced:
+                self._reduce(u)
+            u.reduced = False
+        grads, self.grads = self.grads, None
+        return grads
+
+    @contextlib.contextmanager
+    def whole(self):
+        """Every parameter whole while the context is open (COLLECTIVE over
+        the fsdp group: every rank enters it at the same point).  For
+        reading; writes do not reach the rows."""
+        self._pinned += 1
+        try:
+            for u in self.units:
+                self._gather(u)
+            yield self.params
+        finally:
+            self._pinned -= 1
+            for u in self.units:
+                self._free(u)
+
+    def host_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter whole, on the CPU (COLLECTIVE), a unit at a time."""
+        out = {}
+        for u in self.units:
+            self._gather(u)
+            for k in u.names:
+                out[k] = self.params[k].detach().to("cpu", copy=True)
+            self._free(u)
+        return {k: out[k] for k in self.names}
+
+    @torch.no_grad()
+    def load_(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Whole leaves (a one-rank checkpoint's) -> the rank's rows."""
+        for k, v in self.views(self.arena).items():
+            e0, e1 = self.pieces[k]
+            v.copy_(tree[k].reshape(-1)[e0:e1])
+
+    def resident_bytes(self) -> int:
+        """Bytes of parameter storage this rank holds now: the rows and any
+        gathered unit (each storage once)."""
+        seen = {self.arena.untyped_storage().data_ptr(): self.arena.untyped_storage().nbytes()}
+        for p in self.params.values():
+            st = p.untyped_storage()
+            if st.nbytes():
+                seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
+
+
+def shard_module(module: torch.nn.Module, mesh: Mesh) -> ShardedParams:
+    """Split the trainable ``module`` over the mesh's fsdp axis, ZeRO-3
+    (:class:`ShardedParams`); collective with more than one fsdp part."""
+    return ShardedParams(module, mesh)
 
 
 # ------------------------------------------------------------- replication

@@ -19,9 +19,12 @@ joins the process group when the launcher's environment says so
 itself (this process is rank 0, ranks 1..N-1 are child processes; with
 ``--device cpu`` they are gloo processes).  Each rank loads its stride of
 the batches (``train_batch_size`` clips a rank); the global batch is
-``train_batch_size x world``.  Rank 0 alone logs, prints and writes; the
-checkpoint is collective and its file is the one-rank file.
-``frozen_sharding: fsdp`` splits the frozen towers over fsdp with FSDP2.
+``train_batch_size x world``.  The trainable model rests split over
+``--fsdp`` (ZeRO-3, ``parallel.shard_module``).  Rank 0 alone logs, prints
+and writes; the checkpoint is collective and its file is the one-rank file.
+``frozen_sharding: fsdp`` splits the frozen towers over fsdp with FSDP2.  At
+the end every rank's resident trainable bytes, peak device memory and step
+seconds go to ``<output_dir>/ranks.json``.
 
 Usage:
     python -m this_and_that_vdm_tpu_torch.training.train_loop \
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import os
 import socket
@@ -321,7 +325,10 @@ def main(argv: Optional[list] = None, on_step: Optional[Callable] = None):
     waited for the batch as ``data_wait_s``), for callers that inspect the
     run; ``models`` holds the unet, controlnet (None in VL), vae,
     image_encoder and text_encoder.  With ``--devices N`` this process is
-    rank 0 (``on_step`` sees rank 0's state)."""
+    rank 0 (``on_step`` sees rank 0's state); on a mesh the parameters rest
+    split over fsdp, whole in ``state.whole_params()``, a collective that
+    ``on_step`` on one rank cannot enter: there it reads ``state.rows``
+    (this rank's rows of them) or, at ``--fsdp 1``, the parameters."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     device = torch.device(args.device)
@@ -386,7 +393,7 @@ def _train_ranked(args, device: torch.device, on_step: Optional[Callable], joine
     parallel.replicate({k: p.detach() for k, p in model.named_parameters()}, mesh)
     if frozen_sharding == "fsdp":
         # the frozen towers split over fsdp (the VGL UNet with them); the
-        # trainable model stays whole
+        # trainable model is split by init_train_state
         parallel.shard_frozen(modules["vae"], mesh, methods=("encode_mode", "decode"))
         parallel.shard_frozen(modules["image_encoder"], mesh)
         parallel.shard_frozen(modules["text_encoder"], mesh)
@@ -427,8 +434,11 @@ def _train_ranked(args, device: torch.device, on_step: Optional[Callable], joine
     models = dict(unet=unet, controlnet=controlnet, **modules)
     if on_step is not None:
         on_step(state.step, state, None, models)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)  # the steps' peak, for ranks.json
     nonfinite_reads = 0
     t0 = time.perf_counter()
+    step_s = []
     say(f"training {args.mode} on {device}, mesh {mesh.shape}, global batch "
         f"{batch_size * world} ({batch_size}/rank), "
         f"{sum(p.numel() for p in state.params.values()) / 1e6:.1f} M trainable parameters")
@@ -439,7 +449,11 @@ def _train_ranked(args, device: torch.device, on_step: Optional[Callable], joine
             if state.step >= num_iters:
                 break
             batch = parallel.global_batch(batch, mesh, device)
+            t_step = time.perf_counter()
             state, m = step_fn(state, batch, gen)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - t_step)
             m["data_wait_s"] = wait
             step = state.step
             line = f"step {step}: waited {wait:.4f} s for the batch"
@@ -468,20 +482,49 @@ def _train_ranked(args, device: torch.device, on_step: Optional[Callable], joine
                 path = ckpt.save_checkpoint(output_dir, step, state, total_limit)
                 say(f"step {step}: saved {path} ({time.perf_counter() - t0:.1f}s elapsed)")
             if val_every and cfg.get("validation_img_folder") and step % val_every == 0:
-                # rank 0 renders from its whole models; towers split over
-                # fsdp gather their blocks collectively, so then every rank
-                # renders in step and rank 0 writes
-                if is_main or frozen_sharding == "fsdp":
-                    _validate(args, cfg, dcfg, models, tokenize, output_dir, step,
-                              write=is_main)
-                if joined:
-                    dist.barrier()
+                # every rank gathers the trainable model whole, then rank 0
+                # renders; towers split over fsdp gather their blocks
+                # collectively, so then every rank renders in step and rank
+                # 0 writes
+                with state.whole_params():
+                    if is_main or frozen_sharding == "fsdp":
+                        _validate(args, cfg, dcfg, models, tokenize, output_dir, step,
+                                  write=is_main)
+                    if joined:
+                        dist.barrier()
             t_ask = time.perf_counter()
     path = ckpt.save_checkpoint(output_dir, state.step, state, total_limit)
     say(f"done at step {state.step}; final checkpoint {path}")
+    _rank_report(state, device, joined, step_s, output_dir, say)
     if logger is not None:
         logger.close()
     return state
+
+
+def _rank_report(state, device, joined: bool, step_s: list, output_dir: str, say):
+    """Each rank's trainable parameter bytes at rest, its peak device memory
+    and its step seconds (a step ends in a device sync): printed by rank 0
+    and written to ``<output_dir>/ranks.json`` (collective on a mesh)."""
+    resident = (state.rows.resident_bytes() if state.rows is not None else
+                sum(p.numel() * p.element_size() for p in state.params.values()))
+    mine = dict(rank=dist.get_rank() if joined else 0, resident_param_bytes=resident,
+                whole_param_bytes=sum(p.numel() * p.element_size()
+                                      for p in state.params.values()),
+                leaves=len(state.params),
+                peak_bytes=torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None, step_s=step_s)
+    ranks = [mine]
+    if joined:
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+    if parallel.is_main_process():
+        with open(os.path.join(output_dir, "ranks.json"), "w") as f:
+            json.dump(ranks, f)
+        for r in ranks:
+            peak = "n/a" if r["peak_bytes"] is None else f"{r['peak_bytes'] / 2**30:.2f} GiB"
+            say(f"rank {r['rank']}: trainable parameters at rest "
+                f"{r['resident_param_bytes'] / 2**30:.3f} of {r['whole_param_bytes'] / 2**30:.3f}"
+                f" GiB, peak {peak}, seconds per step {[round(t, 4) for t in r['step_s']]}")
 
 
 if __name__ == "__main__":

@@ -22,16 +22,18 @@ latents, ``aug`` N(0,1) like the first frame, ``dropout`` U(0,1) ``[B]``,
 On a mesh of ranks (``mesh=``, under a process group) each rank takes its
 rows of the global batch: every draw is made at the global batch's shape
 from the shared generator (or injected at that shape) and the rank keeps
-its rows, so the split does not change the numbers.  The gradients of the
-ranks are averaged over one flat bucket (reduce-scatter over fsdp, then
-all-reduce over dp and dcn), each rank updates its block rows of the
-trainable state (``parallel.shard_params``) and the new parameters are
-all-gathered.  Without a mesh, or without a process group, the step is the
+its rows, so the split does not change the numbers.  The trainable state
+is split over fsdp (ZeRO-3, ``parallel.shard_module``): the backward
+reduce-scatters each unit's gradients into the rank's rows as they
+complete, the rows are all-reduced over dp and dcn and averaged, and the
+optimizer updates the rank's rows of the parameters in place (K4 once over
+all of them).  Without a mesh, or without a process group, the step is the
 one-device step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -39,7 +41,6 @@ import torch
 import torch.distributed as dist
 
 from .. import parallel
-from ..ops.quant8 import BLOCK
 from ..pipelines import common
 from . import edm, optimizers
 
@@ -100,8 +101,13 @@ def make_optimizer(cfg: TrainConfig, params: Optional[Dict[str, Any]] = None, gr
 class TrainState:
     step: int
     params: Dict[str, torch.nn.Parameter]  # the trainable model's, updated in place
-    opt_state: Any  # of this rank's block rows under a mesh (``rows``)
-    rows: Optional[parallel.BlockRows] = None
+    opt_state: Any  # of this rank's rows under a mesh (``rows``)
+    rows: Optional[parallel.ShardedParams] = None  # the parameters' rows under a mesh
+
+    def whole_params(self):
+        """A context in which ``params`` are whole: under a mesh COLLECTIVE
+        (every rank enters it), since the parameters rest split over fsdp."""
+        return self.rows.whole() if self.rows is not None else contextlib.nullcontext()
 
 
 def _distributed(mesh) -> bool:
@@ -109,14 +115,14 @@ def _distributed(mesh) -> bool:
 
 
 def init_train_state(model: torch.nn.Module, tx, mesh=None) -> TrainState:
-    """Step 0; on a mesh of ranks the optimizer state is this rank's block
-    rows of every leaf (``parallel.shard_params``)."""
+    """Step 0; on a mesh of ranks ``model`` is split over fsdp
+    (``parallel.shard_module``, collective) and the optimizer state is of
+    this rank's rows of every leaf."""
     params = dict(model.named_parameters())
-    detached = {k: p.detach() for k, p in params.items()}
     if not _distributed(mesh):
-        return TrainState(0, params, tx.init(detached))
-    rows = parallel.shard_params(detached, mesh)
-    return TrainState(0, params, tx.init(rows.take(detached)), rows)
+        return TrainState(0, params, tx.init({k: p.detach() for k, p in params.items()}))
+    rows = parallel.shard_module(model, mesh)
+    return TrainState(0, params, tx.init(rows.views(rows.arena)), rows)
 
 
 # train/inference fps skew is reference behaviour: training conditions on the
@@ -195,28 +201,18 @@ def _sharded_update(state: TrainState, loss, tx, mesh):
     """The step's gradients, update and new parameters on a mesh of ranks:
     -> (new opt state, global loss, global gradient norm)."""
     rows = state.rows
-    fsdp = rows.group
-    grads = torch.autograd.grad(loss, list(state.params.values()))
-    bucket = rows.pack(dict(zip(state.params, grads)))
-    del grads
-    mine = bucket.new_empty(rows.rows * BLOCK)
-    dist.reduce_scatter_tensor(mine, bucket, group=fsdp)
+    loss.backward()  # each unit's gradients land in the rank's rows
+    mine = rows.take_grads()
     dist.all_reduce(mine, group=mesh.group(*(a for a in mesh.axis_names if a != "fsdp")))
     mine /= mesh.size
     loss = loss.detach().clone()
     dist.all_reduce(loss)  # the mesh spans every rank
     loss /= mesh.size
     g = rows.views(mine)
-    gnorm = optimizers.global_norm(g, fsdp)
-    whole = {k: p.detach() for k, p in state.params.items()}
-    params = rows.take(whole)
+    gnorm = optimizers.global_norm(g, rows.group)
+    params = rows.views(rows.arena)
     updates, opt_state = tx.update(g, state.opt_state, params)
     optimizers.apply_updates(params, updates)
-    mine.zero_()
-    for k, v in rows.views(mine).items():
-        v.copy_(params[k])
-    dist.all_gather_into_tensor(bucket, mine, group=fsdp)
-    rows.unpack(bucket, whole)
     return opt_state, loss, gnorm
 
 

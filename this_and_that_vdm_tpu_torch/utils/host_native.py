@@ -37,8 +37,8 @@ _SIGNATURES = {
     "ttv_load_frames_u8": (_I, [ctypes.POINTER(_S), _I, _I, _I, _I, _I, _P, _S, _I]),
     # data, n, *out, *h, *w, err, errlen
     "ttv_jpeg_decode": (_I, [_P, _L, _PP, _IP, _IP, _S, _I]),
-    # pixels, h, w, c, *out, err, errlen
-    "ttv_jpeg_encode": (_L, [_P, _I, _I, _I, _PP, _S, _I]),
+    # pixels, h, w, c, scan_per_component, *out, err, errlen
+    "ttv_jpeg_encode": (_L, [_P, _I, _I, _I, _I, _PP, _S, _I]),
     "ttv_free": (None, [_P]),
 }
 
@@ -84,7 +84,7 @@ def _take(lib, ptr: ctypes.c_void_p, nbytes: int) -> bytes:
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """``[H, W, 3]`` uint8 RGB of JPEG bytes: ``cv2.imread``'s pixels in RGB
     order.  Raises ``ValueError`` naming ``name`` for a stream it cannot
-    decode (progressive, 12-bit, truncated, ...)."""
+    decode (arithmetic-coded, lossless, 12-bit, truncated, ...)."""
     lib = library()
     out, h, w, err = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int(), error_buffer()
     buf = ctypes.create_string_buffer(data, len(data))
@@ -95,10 +95,12 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return np.frombuffer(px, np.uint8).reshape(h.value, w.value, 3)
 
 
-def encode_jpeg(img: np.ndarray) -> bytes:
+def encode_jpeg(img: np.ndarray, scan_per_component: bool = False) -> bytes:
     """The JPEG bytes ``cv2.imwrite`` writes at its defaults (quality 95,
     4:2:0) for an ``[H, W, 3]`` uint8 RGB image given to it in BGR, or an
-    ``[H, W]`` grey one."""
+    ``[H, W]`` grey one.  ``scan_per_component`` (a test mode, for the
+    decoder's non-interleaved path): the same frame with each component of
+    an RGB image in a scan of its own."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = np.ascontiguousarray(img[..., 0])
@@ -107,8 +109,8 @@ def encode_jpeg(img: np.ndarray) -> bytes:
     lib = library()
     out, err = ctypes.c_void_p(), error_buffer()
     c = 1 if img.ndim == 2 else 3
-    n = lib.ttv_jpeg_encode(img.ctypes.data, img.shape[0], img.shape[1], c, ctypes.byref(out),
-                            err, len(err))
+    n = lib.ttv_jpeg_encode(img.ctypes.data, img.shape[0], img.shape[1], c,
+                            int(scan_per_component), ctypes.byref(out), err, len(err))
     if n < 0:
         raise ValueError(f"encode_jpeg: {err.value.decode(errors='replace')}")
     return _take(lib, out, n)

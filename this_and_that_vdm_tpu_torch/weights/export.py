@@ -22,7 +22,11 @@ def save_hf_layout(module: torch.nn.Module, out_dir: str, subfolder: str,
     """Write ``<out_dir>/<subfolder>/diffusion_pytorch_model[.variant].safetensors``
     (``model[.variant].safetensors`` for a CLIP tower).  ``variant="fp16"``
     stores every floating tensor in half precision, as the published repos
-    do."""
+    do.  A trainable model resting split over fsdp (``parallel.ShardedParams``)
+    is written inside ``TrainState.whole_params()``; outside it, it raises."""
+    if any(p.untyped_storage().nbytes() == 0 and p.numel() for p in module.parameters()):
+        raise ValueError("save_hf_layout: the module's parameters rest split over fsdp; "
+                         "write it inside TrainState.whole_params()")
     clip = isinstance(module, (CLIPTextModel, CLIPVisionModelWithProjection))
     stem = ("model" if clip else "diffusion_pytorch_model") + (f".{variant}" if variant else "")
     d = os.path.join(out_dir, subfolder)
