@@ -48,10 +48,29 @@ Phases (any failure raises and exits nonzero):
                  random weights, bf16) answers two VGL requests (14 frames of
                  256x384, 1-point and 2-point gesture rasters); the launch
                  counters show every kernel ran on that path
-  8. entry       (runs after phase 5, before the other phases) the phase-5
+ 14. baked       (runs after phase 5, before phase 8) the phase-5 models as a
+                 baked pipeline (bake_params: the denoise step captured once
+                 a key as a CUDA graph, then replayed once a step): phase 5's
+                 two requests held bit for bit (latents and uint8 frames) to
+                 phase 5's eager run, one capture on the first and none on
+                 the second; a batch of four clips (the context_clips > 1
+                 path, 10 steps, baked twice), a guess + ip2p call gated off
+                 at 0.6 (4 steps) and a VL clip (10 steps), each baked
+                 against unbaked bit for bit with one capture; K1-K3
+                 launches a replayed step (recorded at capture, counted
+                 through 5 replays) equal to an eager step's; wall a step,
+                 baked and eager in turns; one step of each under
+                 torch.profiler (device ms, span, busy share); staleness: a
+                 reassigned UNet weight captures anew, a load_state_dict of
+                 a GestureNet weight does not, and both equal eager on the
+                 new weights; the baked bf16 clip's frames against the same
+                 seeded clip in fp32 through the plain versions, PSNR of
+                 every frame >= BF16_PSNR_MIN_DB; peak memory baked and eager
+  8. entry       (runs after phase 14, before the other phases) the phase-5
                  models written through weights/export as an HF-layout fp16
                  tree with a tokenizer folder, loaded back through
-                 weights/loader.load_pretrained (every tensor bit for bit
+                 weights/loader.load_pretrained as a baked pipeline, as the
+                 CLI builds it (every tensor bit for bit
                  against its fp16-rounded original); three requests from
                  three threads through serving.VideoGenServer (25 steps,
                  gestures rasterised by data/rasterize, prompts through the
@@ -172,13 +191,15 @@ Phases (any failure raises and exits nonzero):
                  apart) answering two 4-step VGL requests at full width, their
                  final latents within MESH_SERVE_REL_L2_BOUND of the same
                  requests served unsplit, and on a clip=2 x cfg=1 mesh a batch
-                 of the two, each clip bit-equal to its request served alone;
+                 of the two, baked, each clip bit-equal to its request served
+                 alone (unbaked);
                  K1-K4 on the train path and K1-K3 on the mesh serve path.
                  Prints the phase's wall time, the world-1 step time beside
                  phase 6's and the served latency beside phase 8's
 
 Prints, before the last line, one JSON line with each kernel's launches
-(summed over the paths of phases 5-13, each counted from zero), error, times and bound,
+(summed over the paths of phases 5-14, each counted from zero; a replayed
+graph counts the launches its capture recorded), error, times and bound,
 and the card's name and power limit from nvidia-smi; the last line is
 {"ok": true, "device": {...}}.  A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -778,7 +799,9 @@ def phase_backward():
 
 # ----------------------------------------------------------------- phase 4/5
 
-def build_pipeline():
+def build_pipeline(dtype=torch.bfloat16):
+    """The full-width VGL pipeline, seeded random weights (the same for
+    every ``dtype``: drawn in fp32, then cast to the compute dtype)."""
     from this_and_that_vdm_tpu_torch.models import cast_compute_dtype, init_weights
     from this_and_that_vdm_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
                                                          CLIPVisionConfig,
@@ -799,10 +822,10 @@ def build_pipeline():
                     controlnet=ControlNetModel(ControlNetConfig()),
                     text_encoder=CLIPTextModel(CLIPTextConfig()))
     for m in mods.values():
-        cast_compute_dtype(init_weights(m, gen), torch.bfloat16).eval().requires_grad_(False)
+        cast_compute_dtype(init_weights(m, gen), dtype).eval().requires_grad_(False)
     sync()
     counts = {k: sum(p.numel() for p in m.parameters()) for k, m in mods.items()}
-    log(f"[slice] built full-width models in {time.perf_counter() - t0:.1f} s; params "
+    log(f"[slice] built full-width {dtype} models in {time.perf_counter() - t0:.1f} s; params "
         + ", ".join(f"{k}={v / 1e9:.3f}B" for k, v in counts.items()))
     return StableVideoDiffusionControlNetPipeline(**mods)
 
@@ -984,25 +1007,37 @@ def request_inputs(seed):
     return image.contiguous(), ids, g
 
 
+SLICE_REQUESTS = [dict(points=[(0, 150.0, 120.0)], seed=11, steps=STEPS[0]),
+                  dict(points=[(0, 120.0, 100.0), (F - 1, 260.0, 150.0)], seed=22,
+                       steps=STEPS[1])]
+
+
+def slice_request(pipe, req, **kw):
+    """One phase-5 request through ``pipe``: (uint8 frames, trace)."""
+    image, ids, gen = request_inputs(req["seed"])
+    trace = {}
+    frames = pipe(image, gesture_raster(req["points"], req["seed"]), prompt_ids=ids,
+                  num_frames=F, num_inference_steps=req["steps"], decode_chunk_size=DECODE_CHUNK,
+                  generator=gen, output_type="uint8", trace=trace, **kw)
+    return frames, trace
+
+
 @torch.no_grad()
 def phase_slice(pipe, smi):
+    """Phase 5; also returns each request's (frames, final latents on the
+    host), which phase 14 holds its baked run to."""
     from this_and_that_vdm_tpu_torch import ops
 
-    requests = [dict(points=[(0, 150.0, 120.0)], seed=11, steps=STEPS[0]),
-                dict(points=[(0, 120.0, 100.0), (F - 1, 260.0, 150.0)], seed=22, steps=STEPS[1])]
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    stages = []
-    for i, req in enumerate(requests):
-        image, ids, gen = request_inputs(req["seed"])
-        trace = {}
+    stages, outs = [], []
+    for i, req in enumerate(SLICE_REQUESTS):
         t0 = time.perf_counter()
-        frames = pipe(image, gesture_raster(req["points"], req["seed"]), prompt_ids=ids,
-                      num_frames=F, num_inference_steps=req["steps"],
-                      decode_chunk_size=DECODE_CHUNK, generator=gen, output_type="uint8",
-                      trace=trace)
+        frames, trace = slice_request(pipe, req)
+        sync()
         total = time.perf_counter() - t0
         lat = trace.pop("latents").float()
+        outs.append((frames, lat.cpu()))
         if frames.shape != (1, F, H, W, 3) or frames.dtype != np.uint8:
             raise RuntimeError(f"request {i + 1}: frames {frames.shape} {frames.dtype}")
         if not torch.isfinite(lat).all() or not lat.std().item() > 0:
@@ -1015,12 +1050,291 @@ def phase_slice(pipe, smi):
             f"frames {frames.shape} {frames.dtype}; stages (s) {stage}; total {total:.3f} s; "
             f"latents std {lat.std().item():.4f}  [{smi}]")
     counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = dict(allocated=torch.cuda.max_memory_allocated(),
+                reserved=torch.cuda.max_memory_reserved())
     log(f"[slice] launches over both requests {counts}; peak memory "
-        f"{peak / 2**30:.2f} GiB  [{smi}]")
+        f"{peak['allocated'] / 2**30:.2f} GiB (reserved {peak['reserved'] / 2**30:.2f})  [{smi}]")
     if min(counts[k] for k in INFERENCE_KERNELS) == 0:
         raise RuntimeError(f"the main path skipped a kernel: {counts}")
-    return counts, stages, peak
+    return counts, stages, peak, outs
+
+
+# ----------------------------------------------------------------- phase 14
+
+# Baked denoise (bake_params: the denoise step captured once a key as a CUDA
+# graph and replayed).  Phase 5's two 25-step requests are held bit for bit;
+# the batch of four clips, the guess + ip2p call, the VL clip and the
+# staleness calls run fewer steps (their keys do not depend on the count,
+# and every step replays the same graph).
+BAKED = dict(batch_seeds=(41, 42, 43, 44), batch_steps=10, ip2p_seed=51, ip2p_steps=4,
+             vl_seed=61, vl_steps=10, stale_steps=4, timed_steps=5)
+BAKED_POINTS = ([(0, 150.0, 120.0)], [(0, 120.0, 100.0), (F - 1, 260.0, 150.0)],
+                [(0, 300.0, 60.0)], [(0, 40.0, 200.0), (F - 1, 330.0, 100.0)])
+# The baked bf16 VGL clip's uint8 frames against the same seeded clip in
+# fp32 through the plain versions: the PSNR of every frame at least this
+# (dB).  Read on the H100: 44.11-48.01 dB a frame; the bound sits 4.1 dB
+# below the lowest frame (its squared error may grow 2.6x before it fails).
+BF16_PSNR_MIN_DB = 40.0
+
+
+def batch_inputs(seeds):
+    """Images [B, H, W, 3], prompt ids [B, 77] and per-clip gesture rasters
+    [B, F, H, W, 3] of the clips of ``seeds``, and a generator seeded by the
+    first."""
+    images, ids = zip(*[request_inputs(s)[:2] for s in seeds])
+    rasters = np.stack([gesture_raster(BAKED_POINTS[i % len(BAKED_POINTS)], s)
+                        for i, s in enumerate(seeds)])
+    return (torch.cat(images), torch.cat(ids), rasters,
+            torch.Generator(device="cuda").manual_seed(seeds[0]))
+
+
+def clip_call(pipe, seeds, steps, vgl=True, **kw):
+    """One call of ``pipe`` over the clips of ``seeds``: (frames, trace)."""
+    image, ids, rasters, gen = batch_inputs(seeds)
+    trace = {}
+    args = (image, rasters if len(seeds) > 1 else rasters[0]) if vgl else (image,)
+    frames = pipe(*args, prompt_ids=ids, num_frames=F, num_inference_steps=steps,
+                  decode_chunk_size=DECODE_CHUNK, generator=gen, output_type="uint8",
+                  trace=trace, **kw)
+    return frames, trace
+
+
+def held_pair(label, baked, eager, call, smi, again=False):
+    """``call(pipe) -> (frames, trace)`` on the eager and the baked pipeline
+    (``again``: the baked one a second time, after its capture); their
+    latents and uint8 frames must be equal bit for bit.  Returns (the
+    report of the pair: seconds, stages, new captures; the first baked
+    result)."""
+    res = {}
+    runs = (("eager", eager), ("baked", baked)) + ((("again", baked),) if again else ())
+    for name, p in runs:
+        captures = baked.captures
+        t0 = time.perf_counter()
+        frames, trace = call(p)
+        sync()
+        res[name] = dict(frames=frames, latents=trace.pop("latents").cpu(),
+                         s=time.perf_counter() - t0, stages={k: round(v, 4) for k, v in
+                                                              trace.items()},
+                         captures=baked.captures - captures)
+    baked_runs = [r for name, r in res.items() if name != "eager"]
+    lat_equal = all(torch.equal(r["latents"], res["eager"]["latents"]) for r in baked_runs)
+    frames_equal = all(np.array_equal(r["frames"], res["eager"]["frames"]) for r in baked_runs)
+    finite = bool(torch.isfinite(res["baked"]["latents"]).all())
+    rep = dict(latents_equal=lat_equal, frames_equal=frames_equal,
+               captures=res["baked"]["captures"], eager_s=res["eager"]["s"],
+               baked_s=res["baked"]["s"], eager_stages=res["eager"]["stages"],
+               baked_stages=res["baked"]["stages"])
+    if again:
+        rep.update(again_captures=res["again"]["captures"], again_s=res["again"]["s"],
+                   again_stages=res["again"]["stages"])
+    log(f"[baked] {label}: latents equal {lat_equal}, frames equal {frames_equal}; captures "
+        f"{rep['captures']}; wall eager {rep['eager_s']:.3f} s, baked {rep['baked_s']:.3f} s"
+        + (f" (again, captures {rep['again_captures']}: {rep['again_s']:.3f} s)" if again else "")
+        + f"; stages (s) eager {rep['eager_stages']}, baked {rep['baked_stages']}"
+        + (f", again {rep['again_stages']}" if again else "") + f"  [{smi}]")
+    if not (lat_equal and frames_equal and finite and rep.get("again_captures", 0) == 0):
+        raise RuntimeError(f"baked {label}: baked and eager outputs differ ({rep})")
+    return rep, res["baked"]
+
+
+@torch.no_grad()
+def phase_baked(pipe, smi, slice_outs, slice_stages, slice_peak, eager_step):
+    """Phase 14: the VGL and VL pipelines baked (``bake_params``) against the
+    same calls unbaked, bit for bit; captures, launches through the replays,
+    step, stage and clip times, a replayed step under the profiler, peak
+    memory; staleness after a reassigned weight and a ``load_state_dict``;
+    the baked bf16 clip's frames against the fp32 plain path (PSNR)."""
+    from this_and_that_vdm_tpu_torch import ops
+    from this_and_that_vdm_tpu_torch.pipelines import (StableVideoDiffusionControlNetPipeline,
+                                                       StableVideoDiffusionPipeline)
+    from this_and_that_vdm_tpu_torch.pipelines.svd import denoise_step, denoise_table
+    from this_and_that_vdm_tpu_torch.utils import video_io
+
+    t_phase = time.perf_counter()
+    mods = dict(unet=pipe.unet, vae=pipe.vae, image_encoder=pipe.image_encoder,
+                controlnet=pipe.controlnet, text_encoder=pipe.text_encoder)
+    baked = StableVideoDiffusionControlNetPipeline(**mods, bake_params=True)
+    rep = {}
+
+    # phase 5's two requests, baked: the first captures, the second replays
+    torch.cuda.reset_peak_memory_stats()
+    reqs = []
+    for i, req in enumerate(SLICE_REQUESTS):
+        captures = baked.captures
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, trace = slice_request(baked, req)
+        sync()
+        total = time.perf_counter() - t0
+        lat = trace.pop("latents").float().cpu()
+        want_frames, want_lat = slice_outs[i]
+        r = dict(request=i + 1, total_s=total, stages={k: round(v, 4) for k, v in trace.items()},
+                 captures=baked.captures - captures, launches=ops.launch_counts(),
+                 latents_equal=torch.equal(lat, want_lat),
+                 frames_equal=bool(np.array_equal(frames, want_frames)))
+        reqs.append(r)
+        if i == 0:
+            clip_frames = frames
+        log(f"[baked] request {i + 1} (phase 5's, {req['steps']} steps): total {total:.3f} s "
+            f"(phase 5 eager {slice_stages[i]['total_s']:.3f}); stages (s) {r['stages']} "
+            f"(eager {({k: v for k, v in slice_stages[i].items() if k in r['stages']})}); "
+            f"captures {r['captures']}; latents equal to phase 5's {r['latents_equal']}, "
+            f"frames {r['frames_equal']}; launches {r['launches']}  [{smi}]")
+    baked_peak = dict(allocated=torch.cuda.max_memory_allocated(),
+                      reserved=torch.cuda.max_memory_reserved())
+    graph = baked.step_graphs()[-1]
+    rep["requests"] = reqs
+    rep["capture_s"] = graph.capture_s
+    rep["peak_bytes"] = dict(baked=baked_peak, eager=slice_peak)
+    if not all(r["latents_equal"] and r["frames_equal"] for r in reqs):
+        raise RuntimeError(f"baked: phase 5's requests differ baked ({reqs})")
+    if [r["captures"] for r in reqs] != [1, 0]:
+        raise RuntimeError(f"baked: captures per request {[r['captures'] for r in reqs]}, "
+                           "want [1, 0]")
+
+    # one step: launches recorded at capture against an eager step's, the
+    # counters through the replays, wall a step, a step under the profiler
+    steps = BAKED["timed_steps"]
+    table, _ = denoise_table(STEPS[0], "cuda", cn_scale=[1.0] * STEPS[0])
+    x0, inputs = graph.x.clone(), {k: v.clone() for k, v in graph.inputs.items()}
+
+    def eager_steps(n):
+        x = x0
+        for i in range(n):
+            x = denoise_step(pipe.unet, pipe.controlnet, x, table[i], inputs)
+        return x
+
+    def baked_steps(n):
+        return graph.run(x0, table[:n], inputs)
+
+    sync()
+    ops.reset_launch_counts()
+    eager_steps(1)
+    sync()
+    per_step_eager = ops.launch_counts()
+    ops.reset_launch_counts()
+    got = baked_steps(steps)
+    sync()
+    through_replays = ops.launch_counts()
+    want = eager_steps(steps)
+    sync()
+    walls = {}
+    for name, fn in (("eager", eager_steps), ("baked", baked_steps), ("baked", baked_steps),
+                     ("eager", eager_steps)):
+        t0 = time.perf_counter()
+        fn(steps)
+        sync()
+        walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / steps)
+    prof = {}
+    for name, fn in (("eager", lambda: eager_steps(1)), ("baked", lambda: baked_steps(1))):
+        dt, busy, span_ms, wall_ms = profile_step(fn)
+        prof[name] = dict(device_ms=dt["total_ms"], span_ms=span_ms, busy_share=busy,
+                          wall_ms=wall_ms, kernels_ms=dt["kernels_ms"],
+                          kernel_launches=dt["kernel_launches"], top_ms=dt["top_ms"])
+    rep.update(launches_per_step=dict(recorded=graph.launches, eager=per_step_eager,
+                                      through_replays=through_replays, steps=steps),
+               step_wall_ms=walls, step_profile=prof, phase4_eager_step=eager_step)
+    log(f"[baked] one step (batch 1): launches recorded at capture {graph.launches}, an eager "
+        f"step {per_step_eager}, over {steps} replays {through_replays}; {steps} replayed steps "
+        f"equal to {steps} eager steps: {torch.equal(got, want)}; capture "
+        f"{graph.capture_s:.3f} s  [{smi}]")
+    for name, pr in prof.items():
+        log(f"[baked] {name} step profiled: device {pr['device_ms']:.3f} ms over a "
+            f"{pr['span_ms']:.3f} ms span (busy {pr['busy_share']:.3f}; wall "
+            f"{pr['wall_ms']:.3f} ms); K1 {pr['kernels_ms']['flash_attention bf16']:.3f} ms in "
+            f"{pr['kernel_launches']['flash_attention bf16']}, K2 "
+            f"{pr['kernels_ms']['groupnorm']:.3f} ms in {pr['kernel_launches']['groupnorm']}, "
+            f"K3 {pr['kernels_ms']['ln_matmul bf16']:.3f} ms in "
+            f"{pr['kernel_launches']['ln_matmul bf16']}; wall a step (ms, in turns) "
+            f"{[round(t, 3) for t in walls[name]]}  [{smi}]")
+    log(f"[baked] phase 4's eager step: device {eager_step['device_ms']:.3f} ms over a "
+        f"{eager_step['span_ms']:.3f} ms span (busy {eager_step['busy_share']:.3f})  [{smi}]")
+    if not torch.equal(got, want):
+        raise RuntimeError("baked: replayed steps differ from eager steps")
+    if any(graph.launches[k] != per_step_eager[k] or through_replays[k] != steps * per_step_eager[k]
+           or per_step_eager[k] == 0 for k in INFERENCE_KERNELS):
+        raise RuntimeError(f"baked: launches a replayed step {graph.launches}, through "
+                           f"{steps} replays {through_replays}, an eager step {per_step_eager}")
+    if min(prof["baked"]["kernel_launches"][k] for k in
+           ("flash_attention bf16", "groupnorm", "ln_matmul bf16")) == 0:
+        raise RuntimeError(f"baked: the profiled replay shows no launch of a kernel "
+                           f"{prof['baked']['kernel_launches']}")
+    del got, want, x0, inputs
+
+    # the batch of four clips (context_clips > 1), guess + ip2p gated, VL
+    seeds = BAKED["batch_seeds"]
+    rep["batch4"], _ = held_pair(f"VGL batch {len(seeds)} ({BAKED['batch_steps']} steps)",
+                                 baked, pipe,
+                                 lambda p: clip_call(p, seeds, BAKED["batch_steps"]), smi,
+                                 again=True)
+    ip2p = dict(guess_mode=True, use_instructpix2pix=True, control_guidance_end=0.6,
+                image_guidance_scale=2.0)
+    rep["guess_ip2p"], _ = held_pair(
+        f"VGL guess + ip2p, control_guidance_end 0.6 ({BAKED['ip2p_steps']} steps)", baked, pipe,
+        lambda p: clip_call(p, (BAKED["ip2p_seed"],), BAKED["ip2p_steps"], **ip2p), smi)
+    vl_mods = {k: v for k, v in mods.items() if k != "controlnet"}
+    rep["vl"], _ = held_pair(
+        f"VL clip ({BAKED['vl_steps']} steps)",
+        StableVideoDiffusionPipeline(**vl_mods, bake_params=True),
+        StableVideoDiffusionPipeline(**vl_mods),
+        lambda p: clip_call(p, (BAKED["vl_seed"],), BAKED["vl_steps"], vgl=False), smi)
+    for k in ("batch4", "guess_ip2p", "vl"):
+        if rep[k]["captures"] != 1:
+            raise RuntimeError(f"baked {k}: {rep[k]['captures']} captures, want 1")
+
+    # staleness: a reassigned UNet weight captures anew; load_state_dict of
+    # other weights does not, and the graph reads the new values
+    def stale_call(p):
+        return slice_request(p, dict(SLICE_REQUESTS[0], steps=BAKED["stale_steps"]))
+
+    before, _ = stale_call(baked)
+    conv = pipe.unet.conv_out
+    w0 = conv.weight
+    conv.weight = torch.nn.Parameter(w0 * 0.5, requires_grad=False)
+    rep["reassigned"], r1 = held_pair("UNet conv_out.weight reassigned", baked, pipe, stale_call,
+                                      smi)
+    name = "controlnet_mid_block.weight"
+    saved = pipe.controlnet.state_dict()[name].clone()
+    pipe.controlnet.load_state_dict({name: saved * -2.0}, strict=False)
+    rep["loaded"], r2 = held_pair(f"GestureNet {name} through load_state_dict", baked, pipe,
+                                  stale_call, smi)
+    conv.weight = w0
+    pipe.controlnet.load_state_dict({name: saved}, strict=False)
+    moved = [not np.array_equal(before, r1["frames"]), not np.array_equal(r1["frames"],
+                                                                          r2["frames"])]
+    rep["stale_outputs_moved"] = moved
+    log(f"[baked] staleness: reassigned captures {rep['reassigned']['captures']} (want 1), "
+        f"load_state_dict captures {rep['loaded']['captures']} (want 0); the frames moved with "
+        f"each change {moved}  [{smi}]")
+    if not (rep["reassigned"]["captures"] == 1 and rep["loaded"]["captures"] == 0
+            and all(moved)):
+        raise RuntimeError(f"baked: staleness {rep['reassigned']}, {rep['loaded']}, {moved}")
+
+    # the end-to-end gate of the bf16 kernels: the baked bf16 clip against the
+    # same seeded clip in fp32 through the plain versions
+    del baked
+    torch.cuda.empty_cache()
+    fp32 = build_pipeline(torch.float32)
+    t0 = time.perf_counter()
+    with plain_versions():
+        ref, _ = slice_request(fp32, SLICE_REQUESTS[0])
+    ref_s = time.perf_counter() - t0
+    del fp32
+    torch.cuda.empty_cache()
+    psnr = [video_io.psnr(a, b) for a, b in zip(clip_frames[0], ref[0])]
+    rep["bf16_vs_fp32_plain"] = dict(psnr_db=psnr, min_db=min(psnr), bound_db=BF16_PSNR_MIN_DB,
+                                     fp32_plain_s=ref_s)
+    log(f"[baked] the baked bf16 clip against the fp32 plain path (25 steps, {ref_s:.1f} s): "
+        f"PSNR a frame (dB) {[round(p, 3) for p in psnr]}, min {min(psnr):.3f} (bound "
+        f"{BF16_PSNR_MIN_DB})  [{smi}]")
+    if not min(psnr) >= BF16_PSNR_MIN_DB:
+        raise RuntimeError(f"baked: bf16 clip PSNR {min(psnr)} dB < {BF16_PSNR_MIN_DB}")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"[baked] peak memory over the two baked requests {baked_peak['allocated'] / 2**30:.2f} "
+        f"GiB (reserved {baked_peak['reserved'] / 2**30:.2f}), eager (phase 5) "
+        f"{slice_peak['allocated'] / 2**30:.2f} GiB (reserved "
+        f"{slice_peak['reserved'] / 2**30:.2f}); phase wall {rep['wall_s']:.1f} s  [{smi}]")
+    return rep
 
 
 # ----------------------------------------------------------------- phase 8
@@ -1175,7 +1489,7 @@ def phase_entry_points(tree, expected, smi, device="cuda", dtype=torch.bfloat16,
     fr, h, w = dims
     rep = {}
     t0 = time.perf_counter()
-    pipe = loader.load_pretrained(tree, "vgl", device, dtype, scale=scale)
+    pipe = loader.load_pretrained(tree, "vgl", device, dtype, scale=scale, bake_params=True)
     if device != "cpu":
         sync()
     rep["load_s"] = time.perf_counter() - t0
@@ -1700,8 +2014,9 @@ def mesh_serve(smi, entry_ref):
     finite = all(torch.isfinite(x).all().item() for x in split_lat)
     shapes = all(o.shape == (F, H, W, 3) and o.dtype == np.uint8 for o in split)
 
-    # a batch of the two on a clip=2 x cfg=1 mesh: each clip from its own part
-    pipe = StableVideoDiffusionControlNetPipeline(**mods)
+    # a batch of the two on a clip=2 x cfg=1 mesh, baked: each clip from its
+    # own part, replaying its replica's graph
+    pipe = StableVideoDiffusionControlNetPipeline(**mods, bake_params=True)
     shared = {}
     with VideoGenServer(pipe, mesh=make_serving_mesh([dev, dev], cfg=1), max_delay_s=5.0,
                         trace=shared, **common) as server:
@@ -2984,7 +3299,9 @@ def main():
     backward = phase_backward()
     pipe = build_pipeline()
     rel_l2, step = phase_denoiser(pipe)
-    counts, stages, peak = phase_slice(pipe, smi)
+    counts, stages, peak, slice_outs = phase_slice(pipe, smi)
+    baked = phase_baked(pipe, smi, slice_outs, stages, peak, step)
+    baked_counts = {k: sum(r["launches"][k] for r in baked["requests"]) for k in KERNEL_INFO}
     tree = tempfile.mkdtemp(prefix="chip_smoke_tree_", dir=tree_parent(pipe))
     try:
         expected, tree_rep = write_tree(pipe, tree, smi)
@@ -3011,7 +3328,8 @@ def main():
         shutil.rmtree(curation_root, ignore_errors=True)
     frames = phase_frames(smi, [m["data_wait_s"] for m in weights_data["vgl"]["metrics"]])
     mesh, mesh_counts = phase_mesh(smi, train[0], entry)
-    paths = dict(slice=counts, serve=serve_counts, cli=cli_counts, **wd_counts,
+    paths = dict(slice=counts, baked=baked_counts, serve=serve_counts, cli=cli_counts,
+                 **wd_counts,
                  **{f"train_{t['mode']}": t["launches"] for t in train},
                  curation=curation_counts, tracking=tracking_counts, **mesh_counts)
 
@@ -3029,7 +3347,7 @@ def main():
                        kernel_cases={k: v["cases"] for k, v in kern.items()},
                        backward_rel_err=backward, denoiser_rel_l2=rel_l2,
                        denoise_step_profile=step, requests=stages,
-                       peak_bytes=peak, entry_points=entry, train=train,
+                       peak_bytes=peak, baked=baked, entry_points=entry, train=train,
                        weights_and_data=weights_data, curation=curation, tracking=tracking,
                        frames=frames, mesh=mesh, wall_s=time.perf_counter() - t_start), f,
                   indent=1)

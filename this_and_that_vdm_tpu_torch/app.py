@@ -34,7 +34,8 @@ SAMPLING_DEFAULTS = dict(motion_bucket_id=200, noise_aug_strength=0.1, decode_ch
 
 def build_pipeline(pretrained=None, random_weights=False, dtype="bf16", device="cuda"):
     """(VGL pipeline, tokenizer) from an HF-layout tree, or tiny models of
-    seeded random weights with the hash tokenizer (``random_weights``)."""
+    seeded random weights with the hash tokenizer (``random_weights``); the
+    CLI's ``build_pipeline`` bakes it (its weights stay fixed)."""
     from .cli.inference import _tokenizer, build_pipeline as _bp
 
     args = argparse.Namespace(model_type="GestureNet", pretrained=pretrained,

@@ -10,7 +10,9 @@ Weights come from a local HF-layout directory (``--pretrained``, see
 ``weights/loader.py``).  ``--random-weights`` runs the full path with tiny
 models of seeded random weights, with the md5 hash tokenizer.
 ``--use-ambiguous-prompt`` rewrites the prompt to "<verb> this to there".
-Runs on the CUDA card unless ``--device cpu``.
+Runs on the CUDA card unless ``--device cpu``.  The pipeline is baked (the
+denoise step captured as a CUDA graph and replayed, ``pipelines/svd.py``)
+unless ``--no-bake``.
 
     python -m this_and_that_vdm_tpu_torch.cli.inference --pretrained WEIGHTS \\
         --validation-path INSTANCES --store-dir OUT
@@ -43,19 +45,24 @@ def _load_instance_image(path: str, height: int, width: int) -> np.ndarray:
 
 def build_pipeline(args):
     """``--random-weights``: seeded random models (tiny unless
-    ``--model-scale full``); else the ``--pretrained`` tree."""
+    ``--model-scale full``); else the ``--pretrained`` tree.  Baked (the
+    denoise step a CUDA graph on the card) unless ``--no-bake``."""
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     mode = "vgl" if args.model_type == "GestureNet" else "vl"
     # --model-scale decouples architecture size from weight source, so a
     # synthesized tiny HF-layout tree drives the --pretrained path (the
     # weights rehearsal); --random-weights alone implies tiny
     scale = args.model_scale or ("tiny" if args.random_weights else "full")
+    # weights fixed for the whole run: serve baked (--no-bake runs the
+    # denoise loop eagerly, e.g. the rehearsal's weight-swap negative control)
+    bake = not getattr(args, "no_bake", False)
     if args.random_weights:
         models = loader.random_models(scale, args.device, seed=0)
         for m in models.values():
             cast_compute_dtype(m, dtype)
-        return loader.make_pipeline(models, mode)
-    return loader.load_pretrained(args.pretrained, mode, args.device, dtype, scale)
+        return loader.make_pipeline(models, mode, bake_params=bake)
+    return loader.load_pretrained(args.pretrained, mode, args.device, dtype, scale,
+                                  bake_params=bake)
 
 
 def _tokenizer(args):
@@ -134,6 +141,10 @@ def parser(description=__doc__):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card)")
+    p.add_argument("--no-bake", action="store_true",
+                   help="run the denoise loop eagerly instead of replaying the step's "
+                        "CUDA graph (captured once per shape, its weights' addresses "
+                        "baked in)")
     return p
 
 

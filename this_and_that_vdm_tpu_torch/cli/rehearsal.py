@@ -109,7 +109,7 @@ def main(argv=None):
     print(f"synthesized HF-layout repo at {repo}")
 
     common = ["--model-type", "GestureNet", "--pretrained", repo,
-              "--model-scale", args.scale, "--device", args.device,
+              "--model-scale", args.scale, "--device", args.device, "--no-bake",
               "--validation-path", args.validation_path,
               "--height", str(args.height), "--width", str(args.width),
               "--num-frames", str(args.frames),

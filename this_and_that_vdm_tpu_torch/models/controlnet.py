@@ -87,10 +87,13 @@ class ControlNetModel(nn.Module):
         self.controlnet_mid_block = Conv2d(ch[-1], ch[-1], 1)
 
     def forward(self, sample, timestep, encoder_hidden_states, added_time_ids,
-                controlnet_cond, conditioning_scale: float = 1.0, guess_mode: bool = False,
+                controlnet_cond, conditioning_scale=1.0, guess_mode: bool = False,
                 context_clips: int = 1):
         """sample [B, F, H, W, 8]; controlnet_cond [B, F, H, W, 4] (VAE-encoded
-        gestures) -> (tuple of skip residuals, mid residual)."""
+        gestures) -> (tuple of skip residuals, mid residual).
+        ``conditioning_scale``: a float, or a 0-dim tensor on the sample's
+        device (the denoise loop's per-step table, read inside a captured
+        step without a host copy)."""
         dtype = self.conv_in_concat.weight.dtype
         b, f = sample.shape[:2]
         emb = embed_time(self, timestep, added_time_ids, b, dtype)

@@ -18,6 +18,7 @@ so that each row still meets the context the whole batch gives it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -70,9 +71,12 @@ class CfgBranch:
         return ((self.index * s + r % s) % self.count) * self.clips + r // s
 
 
-def _clip_exact_order(r: int, n: int, clips: int):
+@functools.lru_cache(maxsize=256)
+def _clip_exact_order(r: int, n: int, clips: int, device: torch.device):
     """Row permutation for the per-clip exact context mapping (see the JAX
-    ``_clip_exact_order``): rows grouped context-major, and its inverse."""
+    ``_clip_exact_order``): rows grouped context-major, and its inverse, as
+    index tensors on ``device``, made once a layout: a copy to the card on
+    every forward would be a host-to-device copy inside a captured step."""
     if r % n or n % clips:
         raise ValueError(
             f"context_clips={clips} must divide the {n} contexts and rows "
@@ -84,7 +88,8 @@ def _clip_exact_order(r: int, n: int, clips: int):
     i, j = b % clips, b // clips
     ctx = ((j * s + p) % mult) * clips + i
     order = np.argsort(ctx, kind="stable")
-    return torch.from_numpy(order), torch.from_numpy(np.argsort(order))
+    return (torch.from_numpy(order).to(device),
+            torch.from_numpy(np.argsort(order)).to(device))
 
 
 class GroupedCrossAttention(nn.Module):
@@ -114,15 +119,15 @@ class GroupedCrossAttention(nn.Module):
         if clips == 1:
             q = q.reshape(m, n, f, hd, dh).transpose(0, 1)
         else:
-            order, inv = _clip_exact_order(r, n, clips)
-            q = q[order.to(q.device)].reshape(n, m, f, hd, dh)
+            order, inv = _clip_exact_order(r, n, clips, q.device)
+            q = q[order].reshape(n, m, f, hd, dh)
         logits = torch.einsum("cmfhd,ckhd->cmhfk", q.float(), k.float()) * dh ** -0.5
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("cmhfk,ckhd->cmfhd", probs, v)
         if inv is None:
             out = out.transpose(0, 1).reshape(r, f, hd * dh)
         else:
-            out = out.reshape(r, f, hd * dh)[inv.to(out.device)]
+            out = out.reshape(r, f, hd * dh)[inv]
         return self.to_out[0](out)
 
     def _branch_forward(self, x_rows, ctx, ln: LayerNorm, br: CfgBranch):

@@ -21,21 +21,167 @@ branches over ``cfg`` when it equals their count (2; 3 with ip2p; otherwise
 every branch runs on the part's first device).  Each step the branches'
 noise predictions meet on the first device for the guided combine, and the
 new latents go back to every branch.
+
+The single-device denoise loop (every loop but the CFG-split one) runs one
+step function, :func:`denoise_step` (the JAX scan body), over a
+``[steps, 8]`` fp32 table of each step's scalars on the device
+(:func:`denoise_table`).  ``bake_params`` (default False, as in the JAX
+dataclass; the CLI and the app turn it on) runs it as a CUDA graph on a
+CUDA pipeline: the step is captured once a key (:class:`StepGraph`, the
+counterpart of the JAX package's cached ``jit(lax.scan)``, its weights'
+addresses baked in) and then replayed once a step after a copy of the
+step's row; the programs are cached per pipeline (``_cached_fn``, at most
+``_FN_CACHE_LIMIT``, oldest evicted first).  The key (``_step_key``) holds
+everything the graph bakes in: the kind (``denoise`` / ``denoise_cn``),
+the latents' shape (batch, frames, h, w), the compute dtype, the device,
+``ip2p``, ``guess_mode``, the shapes of the step's inputs and
+(``_bake_key``) the ``data_ptr`` of every parameter and buffer of the UNet
+and the ControlNet: reassigning a tensor captures anew, while an in-place
+``copy_`` or ``load_state_dict`` keeps the key and the graph reads the new
+values.  Unlike the JAX key, ``num_steps``, ``control_guidance_start/end``
+and the guidance scales are not in it: they are rows and columns of the
+table.  Unbaked, and on the CPU (which has no graphs), the same step runs
+eagerly, so baked and eager latents are equal bit for bit.  A capture or
+replay that fails raises; nothing falls back to the eager loop.  Leave
+``bake_params`` off where weights change between calls by reassignment or
+are freed at rest (training's validation renders, ZeRO-3 units).  The
+CFG-split loop on a serving mesh stays eager.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
+import itertools
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import parallel
+from .. import ops, parallel
 from ..models.transformer import CfgBranch
-from ..schedulers import make_svd_schedule
+from ..schedulers import make_svd_schedule, table_scale_model_input, table_step
+from ..schedulers.euler_discrete import DT, T
 from . import common
+
+# columns the pipelines add to the scheduler's step table: the ControlNet's
+# scale at the step (controlnet_conditioning_scale times the step's
+# control_guidance gate) and the ip2p image guidance scale
+CN_SCALE, IMG_SCALE = DT + 1, DT + 2
+
+
+def denoise_table(num_steps: int, device, cn_scale=None, image_guidance_scale: float = 0.0):
+    """``([num_steps, 8] fp32 table on ``device``, init_noise_sigma)``: the
+    scheduler's ``step_table`` and the columns ``CN_SCALE`` (``cn_scale``, a
+    value a step) and ``IMG_SCALE``, built once a call."""
+    sched = make_svd_schedule(num_steps)
+    extra = np.zeros((num_steps, 2), np.float32)
+    if cn_scale is not None:
+        extra[:, 0] = cn_scale
+    extra[:, 1] = image_guidance_scale
+    table = np.concatenate([sched.step_table(), extra], axis=1)
+    return torch.from_numpy(table).to(device), sched.init_noise_sigma
+
+
+def denoise_step(unet, controlnet, x, row, inputs: dict, ip2p: bool = False,
+                 guess_mode: bool = False):
+    """One Euler step of the CFG-folded single-device loop (the JAX scan
+    body): ``x`` the latents ``[B, F, h, w, 4]`` fp32, ``row`` the step's row
+    of :func:`denoise_table` on the device, ``inputs`` what every step reads:
+    ``states`` and ``add_ids`` (CFG-folded), ``img_lat`` ``[mult * B, h, w,
+    4]``, ``guidance`` ``[B, F, 1, 1, 1]`` and, with a ControlNet,
+    ``cn_cond`` (``[B, F, h, w, 4]`` in guess mode, else ``[mult * B, ...]``).
+    ``controlnet`` None: the VL step.  Guess mode runs the ControlNet on the
+    conditional branch alone (last in the standard ``[uncond; cond]``
+    layout, first in ip2p ``[cond; uncond_t; uncond_i]``) and pads the other
+    branches' residuals with zeros.  Reads no host value: it is what a
+    :class:`StepGraph` captures."""
+    b, f = x.shape[:2]
+    mult = 3 if ip2p else 2
+    img_lat = inputs["img_lat"][:, None].expand(-1, f, -1, -1, -1)
+    inp = torch.cat([table_scale_model_input(torch.cat([x] * mult, dim=0), row), img_lat],
+                    dim=-1)
+    t, states, ids = row[T], inputs["states"], inputs["add_ids"]
+    res = mid = None
+    if controlnet is not None and guess_mode:
+        rows = slice(0, b) if ip2p else slice(b * (mult - 1), b * mult)
+        res, mid = controlnet(inp[rows], t, states[rows], ids[rows], inputs["cn_cond"],
+                              conditioning_scale=row[CN_SCALE], guess_mode=True,
+                              context_clips=b)
+
+        def pad(r):
+            zeros = [torch.zeros_like(r)] * (mult - 1)
+            return torch.cat([r] + zeros if ip2p else zeros + [r], dim=0)
+
+        res, mid = tuple(pad(r) for r in res), pad(mid)
+    elif controlnet is not None:
+        res, mid = controlnet(inp, t, states, ids, inputs["cn_cond"],
+                              conditioning_scale=row[CN_SCALE], context_clips=b)
+    pred = unet(inp, t, states, ids, down_block_additional_residuals=res,
+                mid_block_additional_residual=mid, context_clips=b)
+    guidance = inputs["guidance"]
+    if ip2p:
+        p_first, p_cond, p_uncond = pred.chunk(3, dim=0)
+        pred = (p_uncond + guidance * (p_cond - p_uncond)
+                + row[IMG_SCALE] * (p_cond - p_first))
+    else:
+        p_uncond, p_cond = pred.chunk(2, dim=0)
+        pred = p_uncond + guidance * (p_cond - p_uncond)
+    return table_step(pred, row, x)
+
+
+class StepGraph:
+    """``step(x, row, inputs)`` captured as one CUDA graph over static
+    buffers (the latents, the step's row, the inputs), after one warm-up
+    call on the capture's side stream (lazy library state must not start
+    inside a capture).  The graph writes the new latents back into its
+    latents buffer, so :meth:`run` is a copy of the step's row and a replay,
+    once a step.  ``launches``: the kernel launches the capture recorded
+    (the wrappers counted them while capturing, and nothing ran then, so
+    they are taken off the counters and added back on every replay).
+    Temporaries live in ``pool``, which the graphs of one pipeline share:
+    their replays never overlap.  Nothing catches a failed capture.  One
+    graph a step rather than one for the loop: the host enqueues the
+    replays ahead of the device, so a loop graph would save only the row
+    copies, at the loop's length times the capture."""
+
+    def __init__(self, step, x, row, inputs: dict, pool):
+        dev = x.device
+        with torch.cuda.device(dev):
+            self.x, self.row = x.clone(), row.clone()
+            self.inputs = {k: v.clone() for k, v in inputs.items()}
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                step(self.x, self.row, self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            before = ops.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.x.copy_(step(self.x, self.row, self.inputs))
+            self.capture_s = time.perf_counter() - t0
+        after = ops.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        ops.add_launch_counts({k: -n for k, n in self.launches.items()})
+        self.replays = 0
+
+    def run(self, x, table, inputs: dict):
+        """The loop from latents ``x`` over the rows of ``table`` -> the
+        final latents (a new tensor)."""
+        with torch.cuda.device(self.x.device):
+            for k, v in inputs.items():
+                self.inputs[k].copy_(v)
+            self.x.copy_(x)
+            for i in range(table.shape[0]):
+                self.row.copy_(table[i])
+                self.graph.replay()
+                ops.add_launch_counts(self.launches)
+            self.replays += table.shape[0]
+            return self.x.clone()
 
 
 class _Stage:
@@ -74,12 +220,81 @@ class StableVideoDiffusionPipeline:
     """Holds the modules; ``__call__`` mirrors the reference API."""
 
     _MODULES = ("unet", "vae", "image_encoder", "text_encoder")
+    _FN_CACHE_LIMIT = 8  # graphs (with their static buffers) kept at most
 
-    def __init__(self, unet, vae, image_encoder, text_encoder=None):
+    def __init__(self, unet, vae, image_encoder, text_encoder=None, bake_params: bool = False):
         self.unet, self.vae = unet, vae
         self.image_encoder, self.text_encoder = image_encoder, text_encoder
+        self.bake_params = bake_params
         self.mesh = None
         self._replicas = {}
+        self._own_cache()
+
+    def _own_cache(self):
+        """A program cache, graph pool, capture count and lock of this
+        pipeline's own (a mesh replica gets new ones)."""
+        self._fn_cache, self._graph_pool = {}, None
+        self.captures = 0  # step graphs captured, over every key
+        self._lock = threading.Lock()
+
+    def _cached_fn(self, key, build):
+        """The cached program of ``key``, built by ``build()`` if absent; at
+        most ``_FN_CACHE_LIMIT`` kept, the oldest evicted first."""
+        entry = self._fn_cache.get(key)
+        if entry is None:
+            entry = build()
+            while len(self._fn_cache) >= self._FN_CACHE_LIMIT:
+                self._fn_cache.pop(next(iter(self._fn_cache)))
+            self._fn_cache[key] = entry
+        return entry
+
+    def step_graphs(self) -> list:
+        """The cached :class:`StepGraph` objects, oldest first."""
+        return list(self._fn_cache.values())
+
+    @staticmethod
+    def _tensor_identity(module):
+        """The ``data_ptr`` of every parameter and buffer of ``module`` (the
+        counterpart of the JAX ``_tree_identity``): the addresses a graph
+        reads.  An address that comes back holds the tensor now there, which
+        is what a graph keyed by it reads, so no old tensor is retained."""
+        if module is None:
+            return None
+        return tuple(t.data_ptr() for t in itertools.chain(module.parameters(), module.buffers()))
+
+    def _bake_key(self):
+        if not self.bake_params:
+            return None
+        return (self._tensor_identity(self.unet),
+                self._tensor_identity(getattr(self, "controlnet", None)))
+
+    def _step_key(self, kind: str, x, inputs: dict, ip2p: bool, guess_mode: bool):
+        return (kind, tuple(x.shape), self.unet.conv_in.weight.dtype, x.device, ip2p, guess_mode,
+                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+                self._bake_key())
+
+    def _denoise_loop(self, kind: str, latents, table, init_noise_sigma: float, inputs: dict,
+                      ip2p: bool = False, guess_mode: bool = False):
+        """The single-device loop: :func:`denoise_step` over the rows of
+        ``table``, replayed from a cached :class:`StepGraph` when baked on a
+        CUDA device, else called eagerly."""
+        controlnet = self.controlnet if kind == "denoise_cn" else None
+        step = functools.partial(denoise_step, self.unet, controlnet, ip2p=ip2p,
+                                 guess_mode=guess_mode)
+        x = latents * init_noise_sigma
+        if not (self.bake_params and x.device.type == "cuda"):
+            for i in range(table.shape[0]):
+                x = step(x, table[i], inputs)
+            return x
+        with self._lock:
+            def build():
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                self.captures += 1
+                return StepGraph(step, x, table[0], inputs, self._graph_pool)
+
+            graph = self._cached_fn(self._step_key(kind, x, inputs, ip2p, guess_mode), build)
+            return graph.run(x, table, inputs)
 
     @property
     def device(self) -> torch.device:
@@ -96,8 +311,10 @@ class StableVideoDiffusionPipeline:
             for name, reps in copies.items():
                 setattr(rep, name, reps[dev])
             rep.mesh, rep._replicas = None, {}
+            rep._own_cache()
             self._replicas[dev] = rep
         self.mesh = mesh
+        self._fn_cache.clear()
         return self
 
     def _replica(self, dev) -> "StableVideoDiffusionPipeline":
@@ -218,10 +435,10 @@ class StableVideoDiffusionPipeline:
         guidance = common.guidance_linspace(min_guidance_scale, max_guidance_scale,
                                             num_frames, b, dev)
         with _Stage(trace, "denoise", dev):
-            sched = make_svd_schedule(steps)
-            img_lat = img_lat_cfg[:, None].expand(-1, num_frames, -1, -1, -1)
-            x = latents * sched.init_noise_sigma
-            if len(branches) == 2:  # the cfg axis: a branch a device
+            if len(branches) == 2:  # the cfg axis: a branch a device (eager)
+                sched = make_svd_schedule(steps)
+                img_lat = img_lat_cfg[:, None].expand(-1, num_frames, -1, -1, -1)
+                x = latents * sched.init_noise_sigma
                 parts = cfg_parts(branches, b, dict(states=states_cfg, img_lat=img_lat,
                                                     add_ids=add_ids))
                 for i in range(steps):
@@ -236,11 +453,8 @@ class StableVideoDiffusionPipeline:
                     uncond, cond = (q.to(dev) for q in preds)
                     x = sched.step(uncond + guidance * (cond - uncond), i, x)
                 return x
-            for i in range(steps):
-                inp = sched.scale_model_input(torch.cat([x, x], dim=0), i)
-                inp = torch.cat([inp, img_lat], dim=-1)
-                pred = self.unet(inp, torch.tensor(sched.timesteps[i], device=dev),
-                                 states_cfg, add_ids, context_clips=b)
-                uncond, cond = pred.chunk(2, dim=0)
-                x = sched.step(uncond + guidance * (cond - uncond), i, x)
+            table, sigma0 = denoise_table(steps, dev)
+            inputs = dict(states=states_cfg, img_lat=img_lat_cfg, add_ids=add_ids,
+                          guidance=guidance)
+            x = self._denoise_loop("denoise", latents, table, sigma0, inputs)
         return x

@@ -8,7 +8,10 @@ step gating, ``guess_mode`` (ControlNet on the conditional half only, with
 zero residuals on the other branches) and the 3-way ``use_instructpix2pix``
 CFG.  On a serving mesh (``place_on_mesh``, see ``pipelines/svd.py``) each
 CFG branch runs the ControlNet and the UNet on its own device; in guess mode
-only the conditional branch's device runs the ControlNet.
+only the conditional branch's device runs the ControlNet.  ``bake_params``
+and the step graphs: see ``pipelines/svd.py`` (the ``denoise_cn`` key adds
+``ip2p`` and ``guess_mode``; the per-step ControlNet scale and the image
+guidance scale are columns of the step table).
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ import torch
 
 from ..schedulers import make_svd_schedule
 from . import common
-from .svd import StableVideoDiffusionPipeline, _Stage, cfg_parts
+from .svd import StableVideoDiffusionPipeline, _Stage, cfg_parts, denoise_table
 
 
 class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
     _MODULES = StableVideoDiffusionPipeline._MODULES + ("controlnet",)
 
-    def __init__(self, unet, vae, image_encoder, controlnet, text_encoder=None):
-        super().__init__(unet, vae, image_encoder, text_encoder)
+    def __init__(self, unet, vae, image_encoder, controlnet, text_encoder=None,
+                 bake_params: bool = False):
+        super().__init__(unet, vae, image_encoder, text_encoder, bake_params)
         self.controlnet = controlnet
 
     def encode_condition_img(self, condition_img):
@@ -40,60 +44,29 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
                 num_steps: int, cond_scale: float, ctrl_start: float, ctrl_end: float,
                 guess_mode: bool, ip2p: bool, image_guidance_scale: float, branches=None):
         """The Euler loop; ``branches``: the replicas of the CFG branches
-        (one a branch) on a serving mesh, else None."""
+        (one a branch) on a serving mesh, else None.  The single-device loop
+        is ``_denoise_loop`` over ``denoise_step`` (baked: a replayed CUDA
+        graph); the CFG-split loop runs eagerly."""
         if branches is not None and len(branches) == (3 if ip2p else 2):
             return self._denoise_split(branches, latents, states_cfg, img_lat_cfg, cond_latents,
                                        add_ids, guidance, num_steps, cond_scale, ctrl_start,
                                        ctrl_end, guess_mode, ip2p, image_guidance_scale)
-        dev = latents.device
-        sched = make_svd_schedule(num_steps)
+        b = latents.shape[0]
         mult = 3 if ip2p else 2
-        b, f = latents.shape[:2]
         keep = [1.0 - float(i / num_steps < ctrl_start or (i + 1) / num_steps > ctrl_end)
                 for i in range(num_steps)]
-        img_lat = img_lat_cfg[:, None].expand(-1, f, -1, -1, -1)
-        guess = guess_mode and mult > 1
-        cn_batch = 1 if guess else mult
+        cn_batch = 1 if guess_mode else mult
         if cond_latents.dim() == 4:  # shared [F, h, w, 4] (reference API)
             cn_cond = cond_latents[None].repeat(b * cn_batch, 1, 1, 1, 1)
         else:  # per-clip [B, F, h, w, 4]; CFG layout is branch-major blocks of B
             cn_cond = cond_latents.repeat(cn_batch, 1, 1, 1, 1)
-        # the branch the ControlNet runs on in guess mode: cond is last in the
-        # standard [uncond; cond] layout, first in ip2p [cond; uncond_t; uncond_i]
-        cn_rows = slice(0, b) if ip2p else slice(b * (mult - 1), b * mult)
-
-        x = latents * sched.init_noise_sigma
-        for i in range(num_steps):
-            inp = sched.scale_model_input(torch.cat([x] * mult, dim=0), i)
-            inp = torch.cat([inp, img_lat], dim=-1)
-            t = torch.tensor(sched.timesteps[i], device=dev)
-            scale = cond_scale * keep[i]
-            if guess:
-                res, mid = self.controlnet(inp[cn_rows], t, states_cfg[cn_rows],
-                                           add_ids[cn_rows], cn_cond,
-                                           conditioning_scale=scale, guess_mode=True,
-                                           context_clips=b)
-
-                def pad(r):
-                    zeros = [torch.zeros_like(r)] * (mult - 1)
-                    return torch.cat([r] + zeros if ip2p else zeros + [r], dim=0)
-
-                res, mid = tuple(pad(r) for r in res), pad(mid)
-            else:
-                res, mid = self.controlnet(inp, t, states_cfg, add_ids, cn_cond,
-                                           conditioning_scale=scale, guess_mode=guess_mode,
-                                           context_clips=b)
-            pred = self.unet(inp, t, states_cfg, add_ids, down_block_additional_residuals=res,
-                             mid_block_additional_residual=mid, context_clips=b)
-            if ip2p:
-                p_first, p_cond, p_uncond = pred.chunk(3, dim=0)
-                pred = (p_uncond + guidance * (p_cond - p_uncond)
-                        + image_guidance_scale * (p_cond - p_first))
-            else:
-                p_uncond, p_cond = pred.chunk(2, dim=0)
-                pred = p_uncond + guidance * (p_cond - p_uncond)
-            x = sched.step(pred, i, x)
-        return x
+        table, sigma0 = denoise_table(num_steps, latents.device,
+                                      cn_scale=[cond_scale * k for k in keep],
+                                      image_guidance_scale=image_guidance_scale)
+        inputs = dict(states=states_cfg, img_lat=img_lat_cfg, add_ids=add_ids,
+                      guidance=guidance, cn_cond=cn_cond)
+        return self._denoise_loop("denoise_cn", latents, table, sigma0, inputs, ip2p=ip2p,
+                                  guess_mode=guess_mode)
 
     def _denoise_split(self, branches, latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
                        guidance, num_steps, cond_scale, ctrl_start, ctrl_end, guess_mode, ip2p,

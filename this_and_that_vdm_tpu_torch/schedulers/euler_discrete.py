@@ -5,6 +5,16 @@ The SVD configuration: v-prediction, continuous timesteps t = 0.25 ln(sigma),
 Karras ramp (rho 7) from sigma_max 700 to sigma_min 0.002, "leading" spacing
 (init_noise_sigma = sqrt(sigma_max^2 + 1)), s_churn 0 (a pure ODE Euler
 step).  The sigma table is host-side numpy; the step is tensor arithmetic.
+
+``step_table`` turns the schedule into a ``[num_steps, 6]`` fp32 table of
+the scalars each step reads (columns ``T`` .. ``DT``), and
+``table_scale_model_input`` / ``table_step`` do the step's arithmetic from a
+row of it on the device: the denoise loop indexes the row instead of
+entering each scalar from the host, so one step can be captured as a CUDA
+graph and replayed with the next row (``pipelines/svd.py``).  They divide
+where the JAX scheduler divides (a CUDA tensor divisor is a true division;
+a host scalar divisor would become a multiply by its reciprocal), so the
+table step equals ``step`` bit for bit on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +27,11 @@ import torch
 SVD_SIGMA_MIN = 0.002
 SVD_SIGMA_MAX = 700.0
 SVD_RHO = 7.0
+
+# columns of ``step_table``: the timestep, the divisor of c_in
+# (sqrt(sigma^2 + 1)), c_out (-sigma / sqrt(sigma^2 + 1)), the divisor of
+# c_skip (sigma^2 + 1), sigma, and sigma_next - sigma
+T, IN_DIV, C_OUT, SKIP_DIV, SIGMA, DT = range(6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +58,30 @@ class EulerDiscreteSchedule:
             + x / (sigma * sigma + 1.0).item()
         derivative = (x - denoised) / sigma.item()
         return (x + derivative * (sigma_next - sigma).item()).to(sample.dtype)
+
+    def step_table(self) -> np.ndarray:
+        """``[num_steps, 6]`` fp32: row ``i`` holds step ``i``'s scalars
+        (columns ``T`` .. ``DT``), each computed in fp32 as ``step`` does."""
+        s, s_next = self.sigmas[:-1], self.sigmas[1:]
+        ss1 = s * s + np.float32(1.0)
+        root = np.sqrt(ss1)
+        return np.stack([self.timesteps, root, -s / root, ss1, s, s_next - s],
+                        axis=1).astype(np.float32)
+
+
+def table_scale_model_input(sample: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """``scale_model_input`` from a row of ``step_table`` (a tensor on the
+    sample's device)."""
+    return sample / row[IN_DIV]
+
+
+def table_step(model_output: torch.Tensor, row: torch.Tensor,
+               sample: torch.Tensor) -> torch.Tensor:
+    """``step`` from a row of ``step_table`` on the sample's device."""
+    x = sample.float()
+    denoised = model_output.float() * row[C_OUT] + x / row[SKIP_DIV]
+    derivative = (x - denoised) / row[SIGMA]
+    return (x + derivative * row[DT]).to(sample.dtype)
 
 
 def karras_sigmas(num_steps: int, sigma_min: float = SVD_SIGMA_MIN,

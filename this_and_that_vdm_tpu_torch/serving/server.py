@@ -1,7 +1,8 @@
 """In-process micro-batching server for clip generation (counterpart of
 ``this_and_that_vdm_tpu/serving/server.py``).
 
-A resident pipeline serves concurrent requests:
+A resident (usually baked: ``bake_params``, its denoise step a replayed
+CUDA graph) pipeline serves concurrent requests:
 
 * requests are **micro-batched**: grouped by everything that changes the
   pipeline call (shapes, steps, frames, guidance, ...) and stacked up to
@@ -56,7 +57,7 @@ class _Request:
 
 
 class VideoGenServer:
-    """Resident micro-batching front end over a pipeline.
+    """Resident micro-batching front end over a (usually baked) pipeline.
 
     ``pipe``: a ``StableVideoDiffusionPipeline`` or
     ``StableVideoDiffusionControlNetPipeline``; the server runs on its

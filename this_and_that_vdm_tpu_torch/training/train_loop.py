@@ -223,8 +223,10 @@ def _validate(args, cfg, dcfg, models, tokenize, output_dir, step, write=True):
     from ..pipelines import StableVideoDiffusionControlNetPipeline, StableVideoDiffusionPipeline
     from . import validation
 
+    # unbaked: the weights change between renders, and under --fsdp the
+    # ZeRO-3 units free their storage at rest (a graph would bake addresses)
     kw = dict(unet=models["unet"], vae=models["vae"], image_encoder=models["image_encoder"],
-              text_encoder=models["text_encoder"])
+              text_encoder=models["text_encoder"], bake_params=False)
     pipe = (StableVideoDiffusionPipeline(**kw) if args.mode == "vl"
             else StableVideoDiffusionControlNetPipeline(controlnet=models["controlnet"], **kw))
     tokenize = tokenize or (lambda s: np.zeros((77,), np.int64))

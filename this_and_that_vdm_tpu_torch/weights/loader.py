@@ -74,11 +74,11 @@ def random_models(scale: str = "full", device="cuda", seed: int = 0) -> dict:
             for name in model_configs(scale)}
 
 
-def make_pipeline(models: dict, mode: str = "vgl"):
+def make_pipeline(models: dict, mode: str = "vgl", bake_params: bool = False):
     """The VGL (``mode="vgl"``: with the GestureNet) or VL pipeline over a
     dict of the five models (``gesturenet`` unused in VL)."""
     kw = dict(unet=models["unet"], vae=models["vae"], image_encoder=models["image_encoder"],
-              text_encoder=models["text_encoder"])
+              text_encoder=models["text_encoder"], bake_params=bake_params)
     if mode == "vgl":
         return StableVideoDiffusionControlNetPipeline(controlnet=models["gesturenet"], **kw)
     if mode != "vl":
@@ -142,7 +142,8 @@ def load_clip(root: str, subfolder: str, scale: str = "full", device="cuda",
 
 
 def load_pretrained(root: str, mode: str = "vgl", device="cuda",
-                    dtype: Optional[torch.dtype] = torch.bfloat16, scale: str = "full"):
+                    dtype: Optional[torch.dtype] = torch.bfloat16, scale: str = "full",
+                    bake_params: bool = False):
     """The VGL (``mode="vgl"``) or VL pipeline over the weights under ``root``."""
     kw = dict(scale=scale, device=device, dtype=dtype)
     models = dict(unet=load_unet(root, **kw), vae=load_vae(root, **kw),
@@ -150,7 +151,7 @@ def load_pretrained(root: str, mode: str = "vgl", device="cuda",
                   text_encoder=load_clip(root, "text_encoder", **kw))
     if mode == "vgl":
         models["gesturenet"] = load_gesturenet(root, **kw)
-    return make_pipeline(models, mode)
+    return make_pipeline(models, mode, bake_params)
 
 
 def load_training_models(root: str, mode: str = "vgl", configs: Optional[dict] = None,
