@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..utils import profiling
 from .layers import TimestepEmbedding
 from .resnet import Conv2d
 from .unet import build_down_blocks, call_block, embed_time, run_down_blocks
@@ -96,29 +97,32 @@ class ControlNetModel(nn.Module):
         step without a host copy)."""
         dtype = self.conv_in_concat.weight.dtype
         b, f = sample.shape[:2]
-        emb = embed_time(self, timestep, added_time_ids, b, dtype)
-        temb = emb[:, None, :].expand(b, f, emb.shape[-1])
-        context = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
-        indicator = torch.zeros((b, f), dtype=dtype, device=sample.device)
+        with profiling.annotate("controlnet.embedding"):
+            emb = embed_time(self, timestep, added_time_ids, b, dtype)
+            temb = emb[:, None, :].expand(b, f, emb.shape[-1])
+            context = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
+            indicator = torch.zeros((b, f), dtype=dtype, device=sample.device)
 
-        x = torch.cat([sample.to(dtype), controlnet_cond.to(dtype)], dim=-1)
-        x = self.conv_in_concat(x.reshape(b * f, *x.shape[2:])).reshape(
-            b, f, *x.shape[2:4], -1)
+        with profiling.annotate("controlnet.conv_in"):
+            x = torch.cat([sample.to(dtype), controlnet_cond.to(dtype)], dim=-1)
+            x = self.conv_in_concat(x.reshape(b * f, *x.shape[2:])).reshape(
+                b, f, *x.shape[2:4], -1)
         x, down_res = run_down_blocks(self.down_blocks, x, temb, context, indicator,
-                                      context_clips, self.config.remat)
-        x = call_block(self.config.remat, self.mid_block, x, temb, context, indicator,
-                       context_clips)
+                                      context_clips, self.config.remat, prefix="controlnet")
+        x = call_block("controlnet.mid_block", self.config.remat, self.mid_block, x, temb,
+                       context, indicator, context_clips)
 
-        ctrl = []
-        for conv, r in zip(self.controlnet_down_blocks, down_res):
-            ctrl.append(conv(r.reshape(b * f, *r.shape[2:])).reshape(r.shape))
-        mid = self.controlnet_mid_block(x.reshape(b * f, *x.shape[2:])).reshape(x.shape)
+        with profiling.annotate("controlnet.conv_out"):  # the zero convs, scaled
+            ctrl = []
+            for conv, r in zip(self.controlnet_down_blocks, down_res):
+                ctrl.append(conv(r.reshape(b * f, *r.shape[2:])).reshape(r.shape))
+            mid = self.controlnet_mid_block(x.reshape(b * f, *x.shape[2:])).reshape(x.shape)
 
-        if guess_mode:
-            scales = np.logspace(-1, 0, len(ctrl) + 1)  # 0.1 .. 1.0
-            ctrl = [r * float(s) * conditioning_scale for r, s in zip(ctrl, scales)]
-            mid = mid * float(scales[-1]) * conditioning_scale
-        else:
-            ctrl = [r * conditioning_scale for r in ctrl]
-            mid = mid * conditioning_scale
-        return tuple(ctrl), mid
+            if guess_mode:
+                scales = np.logspace(-1, 0, len(ctrl) + 1)  # 0.1 .. 1.0
+                ctrl = [r * float(s) * conditioning_scale for r, s in zip(ctrl, scales)]
+                mid = mid * float(scales[-1]) * conditioning_scale
+            else:
+                ctrl = [r * conditioning_scale for r in ctrl]
+                mid = mid * conditioning_scale
+            return tuple(ctrl), mid

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import profiling
 from .layers import GroupNorm, TimestepEmbedding, sinusoidal_embedding
 from .resnet import Conv2d
 from .unet_blocks import (CrossAttnDownBlockSpatioTemporal, CrossAttnUpBlockSpatioTemporal,
@@ -79,14 +80,17 @@ class UNetConfig:
         )
 
 
-def call_block(remat: bool, block, *args):
+def call_block(name: str, remat: bool, block, *args):
     """``block(*args)``; under ``remat`` with autograd recording, through
     ``torch.utils.checkpoint`` (the JAX ``nn.remat`` of each block, the
     reference's per-block gradient checkpointing): the block's activations
-    are dropped after the forward and recomputed in the backward."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(block, *args, use_reentrant=False)
-    return block(*args)
+    are dropped after the forward and recomputed in the backward.  ``name``
+    (the block's qualified name, ``unet.up_blocks.3``) scopes its operations
+    in a profile of an eager step; a replayed graph runs no such scope."""
+    with profiling.annotate(name):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
 
 def up_block_in_channels(channels: Sequence[int], layers_per_block: int):
@@ -119,13 +123,15 @@ def build_down_blocks(cfg, temb_dim: int) -> nn.ModuleList:
     return nn.ModuleList(blocks)
 
 
-def run_down_blocks(blocks, x, temb, context, indicator, context_clips, remat=False):
+def run_down_blocks(blocks, x, temb, context, indicator, context_clips, remat=False,
+                    prefix: str = "unet"):
     down_res = [x]
-    for blk in blocks:
+    for i, blk in enumerate(blocks):
+        name = f"{prefix}.down_blocks.{i}"
         if isinstance(blk, CrossAttnDownBlockSpatioTemporal):
-            x, states = call_block(remat, blk, x, temb, context, indicator, context_clips)
+            x, states = call_block(name, remat, blk, x, temb, context, indicator, context_clips)
         else:
-            x, states = call_block(remat, blk, x, temb, indicator)
+            x, states = call_block(name, remat, blk, x, temb, indicator)
         down_res += states
     return x, down_res
 
@@ -180,13 +186,15 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         [B, S, D]; added_time_ids [B, 3] -> [B, F, H, W, C_out]."""
         dtype = self.conv_in.weight.dtype
         b, f = sample.shape[:2]
-        emb = embed_time(self, timestep, added_time_ids, b, dtype)
-        temb = emb[:, None, :].expand(b, f, emb.shape[-1])
-        context = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
-        indicator = torch.zeros((b, f), dtype=dtype, device=sample.device)
+        with profiling.annotate("unet.embedding"):
+            emb = embed_time(self, timestep, added_time_ids, b, dtype)
+            temb = emb[:, None, :].expand(b, f, emb.shape[-1])
+            context = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
+            indicator = torch.zeros((b, f), dtype=dtype, device=sample.device)
 
-        x = sample.to(dtype)
-        x = self.conv_in(x.reshape(b * f, *x.shape[2:])).reshape(b, f, *x.shape[2:4], -1)
+        with profiling.annotate("unet.conv_in"):
+            x = sample.to(dtype)
+            x = self.conv_in(x.reshape(b * f, *x.shape[2:])).reshape(b, f, *x.shape[2:4], -1)
         remat = self.config.remat
         x, down_res = run_down_blocks(self.down_blocks, x, temb, context, indicator,
                                       context_clips, remat)
@@ -200,20 +208,27 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                     f"ControlNet produced {len(down_block_additional_residuals)} "
                     f"residuals but the UNet has {len(down_res)} skip states — "
                     f"mismatched UNet/ControlNet configs")
-            down_res = [(r + a).to(dtype)
-                        for r, a in zip(down_res, down_block_additional_residuals)]
+            with profiling.annotate("unet.add_residuals"):
+                down_res = [(r + a).to(dtype)
+                            for r, a in zip(down_res, down_block_additional_residuals)]
 
-        x = call_block(remat, self.mid_block, x, temb, context, indicator, context_clips)
+        x = call_block("unet.mid_block", remat, self.mid_block, x, temb, context, indicator,
+                       context_clips)
         if mid_block_additional_residual is not None:
-            x = (x + mid_block_additional_residual).to(dtype)
+            with profiling.annotate("unet.add_residuals"):
+                x = (x + mid_block_additional_residual).to(dtype)
 
         n_res = self.config.layers_per_block + 1
-        for blk in self.up_blocks:
+        for i, blk in enumerate(self.up_blocks):
             res, down_res = down_res[-n_res:], down_res[:-n_res]
+            name = f"unet.up_blocks.{i}"
             if isinstance(blk, CrossAttnUpBlockSpatioTemporal):
-                x = call_block(remat, blk, x, res, temb, context, indicator, context_clips)
+                x = call_block(name, remat, blk, x, res, temb, context, indicator, context_clips)
             else:
-                x = call_block(remat, blk, x, res, temb, indicator)
+                x = call_block(name, remat, blk, x, res, temb, indicator)
 
-        flat = self.conv_out(self.conv_norm_out(x.reshape(b * f, *x.shape[2:])))
-        return flat.reshape(b, f, *flat.shape[1:])
+        with profiling.annotate("unet.conv_norm_out"):
+            flat = self.conv_norm_out(x.reshape(b * f, *x.shape[2:]))
+        with profiling.annotate("unet.conv_out"):
+            flat = self.conv_out(flat)
+            return flat.reshape(b, f, *flat.shape[1:])

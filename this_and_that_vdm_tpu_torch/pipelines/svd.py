@@ -8,10 +8,19 @@ postprocess.  Random draws come from an explicit ``torch.Generator``;
 ``latents=`` and ``image_noise=`` inject them instead (the tests hand both
 packages the same numpy draws).
 
-``trace``: an optional dict; when given, each stage ends in a device
-synchronise and its wall seconds are recorded under the stage's name
-(``cond_encode``, ``gesture_encode``, ``denoise``, ``decode``,
-``uint8_host``), with the final latents under ``latents``.
+Spans (``utils.profiling``, recorded while a profiler runs or inside
+``profiling.recording()``): ``pipeline.call`` over a call, and inside it,
+each opened in the method that does the stage, ``pipeline.cond_encode``
+(``encode_conditioning``), ``pipeline.gesture_encode``
+(``encode_condition_img``), ``denoise.replay`` (``StepGraph.run``: events
+before the first replay and after the last) or ``denoise.eager`` (the eager
+and the CFG-split loops), ``pipeline.decode`` and ``pipeline.to_host``
+(``_finish``), each with a device interval (timing events, no
+synchronise), and ``pipeline.capture`` (a step graph's warm-up call and
+capture).  ``trace``: an optional dict; when given, the same
+stage spans end in a device synchronise and their wall seconds go under
+``cond_encode``, ``gesture_encode``, ``denoise``, ``decode`` and
+``uint8_host``, with the final latents under ``latents``.
 
 ``place_on_mesh(mesh)`` serves over a (clip, cfg) serving mesh
 (``parallel.make_serving_mesh``): one replica of each model per distinct
@@ -64,6 +73,7 @@ from .. import ops, parallel
 from ..models.transformer import CfgBranch
 from ..schedulers import make_svd_schedule, table_scale_model_input, table_step
 from ..schedulers.euler_discrete import DT, T
+from ..utils import profiling
 from . import common
 
 # columns the pipelines add to the scheduler's step table: the ControlNet's
@@ -100,9 +110,10 @@ def denoise_step(unet, controlnet, x, row, inputs: dict, ip2p: bool = False,
     :class:`StepGraph` captures."""
     b, f = x.shape[:2]
     mult = 3 if ip2p else 2
-    img_lat = inputs["img_lat"][:, None].expand(-1, f, -1, -1, -1)
-    inp = torch.cat([table_scale_model_input(torch.cat([x] * mult, dim=0), row), img_lat],
-                    dim=-1)
+    with profiling.annotate("step.model_input"):
+        img_lat = inputs["img_lat"][:, None].expand(-1, f, -1, -1, -1)
+        inp = torch.cat([table_scale_model_input(torch.cat([x] * mult, dim=0), row), img_lat],
+                        dim=-1)
     t, states, ids = row[T], inputs["states"], inputs["add_ids"]
     res = mid = None
     if controlnet is not None and guess_mode:
@@ -122,14 +133,15 @@ def denoise_step(unet, controlnet, x, row, inputs: dict, ip2p: bool = False,
     pred = unet(inp, t, states, ids, down_block_additional_residuals=res,
                 mid_block_additional_residual=mid, context_clips=b)
     guidance = inputs["guidance"]
-    if ip2p:
-        p_first, p_cond, p_uncond = pred.chunk(3, dim=0)
-        pred = (p_uncond + guidance * (p_cond - p_uncond)
-                + row[IMG_SCALE] * (p_cond - p_first))
-    else:
-        p_uncond, p_cond = pred.chunk(2, dim=0)
-        pred = p_uncond + guidance * (p_cond - p_uncond)
-    return table_step(pred, row, x)
+    with profiling.annotate("step.guidance_update"):
+        if ip2p:
+            p_first, p_cond, p_uncond = pred.chunk(3, dim=0)
+            pred = (p_uncond + guidance * (p_cond - p_uncond)
+                    + row[IMG_SCALE] * (p_cond - p_first))
+        else:
+            p_uncond, p_cond = pred.chunk(2, dim=0)
+            pred = p_uncond + guidance * (p_cond - p_uncond)
+        return table_step(pred, row, x)
 
 
 class StepGraph:
@@ -149,7 +161,7 @@ class StepGraph:
 
     def __init__(self, step, x, row, inputs: dict, pool):
         dev = x.device
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), profiling.span("pipeline.capture", batch=x.shape[0]):
             self.x, self.row = x.clone(), row.clone()
             self.inputs = {k: v.clone() for k, v in inputs.items()}
             stream = torch.cuda.Stream(dev)
@@ -169,38 +181,22 @@ class StepGraph:
         ops.add_launch_counts({k: -n for k, n in self.launches.items()})
         self.replays = 0
 
-    def run(self, x, table, inputs: dict):
+    def run(self, x, table, inputs: dict, trace: Optional[dict] = None):
         """The loop from latents ``x`` over the rows of ``table`` -> the
-        final latents (a new tensor)."""
+        final latents (a new tensor); the replays inside ``denoise.replay``."""
+        steps = table.shape[0]
         with torch.cuda.device(self.x.device):
             for k, v in inputs.items():
                 self.inputs[k].copy_(v)
             self.x.copy_(x)
-            for i in range(table.shape[0]):
-                self.row.copy_(table[i])
-                self.graph.replay()
-                ops.add_launch_counts(self.launches)
-            self.replays += table.shape[0]
+            with profiling.span("denoise.replay", self.x.device, trace=trace, key="denoise",
+                                steps=steps, batch=self.x.shape[0]):
+                for i in range(steps):
+                    self.row.copy_(table[i])
+                    self.graph.replay()
+                    ops.add_launch_counts(self.launches)
+            self.replays += steps
             return self.x.clone()
-
-
-class _Stage:
-    """Times one pipeline stage into ``trace`` (ends in a device sync)."""
-
-    def __init__(self, trace: Optional[dict], name: str, device: torch.device):
-        self.trace, self.name, self.device = trace, name, device
-
-    def __enter__(self):
-        if self.trace is not None:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.trace is not None and exc[0] is None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.trace[self.name] = time.perf_counter() - self.t0
-        return False
 
 
 def cfg_parts(branches, b: int, rows: dict):
@@ -274,17 +270,20 @@ class StableVideoDiffusionPipeline:
                 self._bake_key())
 
     def _denoise_loop(self, kind: str, latents, table, init_noise_sigma: float, inputs: dict,
-                      ip2p: bool = False, guess_mode: bool = False):
+                      ip2p: bool = False, guess_mode: bool = False,
+                      trace: Optional[dict] = None):
         """The single-device loop: :func:`denoise_step` over the rows of
         ``table``, replayed from a cached :class:`StepGraph` when baked on a
-        CUDA device, else called eagerly."""
+        CUDA device, else called eagerly (``denoise.eager``)."""
         controlnet = self.controlnet if kind == "denoise_cn" else None
         step = functools.partial(denoise_step, self.unet, controlnet, ip2p=ip2p,
                                  guess_mode=guess_mode)
         x = latents * init_noise_sigma
         if not (self.bake_params and x.device.type == "cuda"):
-            for i in range(table.shape[0]):
-                x = step(x, table[i], inputs)
+            with profiling.span("denoise.eager", x.device, trace=trace, key="denoise",
+                                steps=table.shape[0], batch=x.shape[0]):
+                for i in range(table.shape[0]):
+                    x = step(x, table[i], inputs)
             return x
         with self._lock:
             def build():
@@ -294,7 +293,7 @@ class StableVideoDiffusionPipeline:
                 return StepGraph(step, x, table[0], inputs, self._graph_pool)
 
             graph = self._cached_fn(self._step_key(kind, x, inputs, ip2p, guess_mode), build)
-            return graph.run(x, table, inputs)
+            return graph.run(x, table, inputs, trace)
 
     @property
     def device(self) -> torch.device:
@@ -373,24 +372,27 @@ class StableVideoDiffusionPipeline:
         return (image, torch.as_tensor(image_noise, device=dev).float(),
                 torch.as_tensor(latents, device=dev).float())
 
-    def encode_conditioning(self, image_m11, input_ids, noise_img, mode: str = "standard"):
+    def encode_conditioning(self, image_m11, input_ids, noise_img, mode: str = "standard",
+                            trace: Optional[dict] = None):
         """-> (encoder states with CFG batching, image latents with CFG batching)."""
-        px = common.clip_preprocess(image_m11)
-        image_embeds = self.image_encoder(px)
-        text_states = None
-        if self.text_encoder is not None and input_ids is not None:
-            text_states = self.text_encoder(input_ids)
-        states = common.build_encoder_hidden_states(image_embeds, text_states)
-        lat = self.vae.encode_mode(image_m11 + noise_img).float()
-        if mode == "ip2p":
-            return common.cfg_concat(states, "ip2p_states"), common.cfg_concat(lat, "ip2p_image")
-        return common.cfg_concat(states), common.cfg_concat(lat)
+        with profiling.span("pipeline.cond_encode", self.device, trace=trace):
+            px = common.clip_preprocess(image_m11)
+            image_embeds = self.image_encoder(px)
+            text_states = None
+            if self.text_encoder is not None and input_ids is not None:
+                text_states = self.text_encoder(input_ids)
+            states = common.build_encoder_hidden_states(image_embeds, text_states)
+            lat = self.vae.encode_mode(image_m11 + noise_img).float()
+            if mode == "ip2p":
+                return (common.cfg_concat(states, "ip2p_states"),
+                        common.cfg_concat(lat, "ip2p_image"))
+            return common.cfg_concat(states), common.cfg_concat(lat)
 
     def _finish(self, latents, output_type: str, decode_chunk_size: int, trace):
-        with _Stage(trace, "decode", self.device):
+        with profiling.span("pipeline.decode", self.device, trace=trace):
             frames = common.decode_latents_chunked(
                 self.vae.decode, latents, self.vae.config.scaling_factor, decode_chunk_size)
-        with _Stage(trace, "uint8_host", self.device):
+        with profiling.span("pipeline.to_host", self.device, trace=trace, key="uint8_host"):
             if output_type == "uint8":
                 out = common.postprocess_frames_uint8(frames).cpu().numpy()
             else:
@@ -405,21 +407,23 @@ class StableVideoDiffusionPipeline:
                  generator: Optional[torch.Generator] = None, latents=None,
                  image_noise=None, output_type: str = "np", trace: Optional[dict] = None):
         """``image`` [B, H, W, 3] in [-1, 1]; ``prompt_ids`` [B, 77] int."""
-        dev = self.device
-        decode_chunk_size = decode_chunk_size or num_frames
-        image, image_noise, latents = self._draws(image, generator, image_noise, latents,
-                                                  num_frames)
-        ids = None if prompt_ids is None else torch.as_tensor(prompt_ids, device=dev)
-        per_clip = dict(image=image, image_noise=image_noise, latents=latents)
-        if ids is not None:
-            per_clip["ids"] = ids
+        with profiling.span("pipeline.call", batch=len(image)):
+            dev = self.device
+            decode_chunk_size = decode_chunk_size or num_frames
+            image, image_noise, latents = self._draws(image, generator, image_noise, latents,
+                                                      num_frames)
+            ids = None if prompt_ids is None else torch.as_tensor(prompt_ids, device=dev)
+            per_clip = dict(image=image, image_noise=image_noise, latents=latents)
+            if ids is not None:
+                per_clip["ids"] = ids
 
-        def run(pipe, branches, image, image_noise, latents, ids=None, trace=None):
-            return pipe._generate(branches, image, ids, image_noise, latents, num_frames,
-                                  num_inference_steps, min_guidance_scale, max_guidance_scale,
-                                  fps, motion_bucket_id, noise_aug_strength, trace)
+            def run(pipe, branches, image, image_noise, latents, ids=None, trace=None):
+                return pipe._generate(branches, image, ids, image_noise, latents, num_frames,
+                                      num_inference_steps, min_guidance_scale,
+                                      max_guidance_scale, fps, motion_bucket_id,
+                                      noise_aug_strength, trace)
 
-        return self._serve(run, per_clip, {}, output_type, decode_chunk_size, trace)
+            return self._serve(run, per_clip, {}, output_type, decode_chunk_size, trace)
 
     def _generate(self, branches, image, ids, image_noise, latents, num_frames, steps,
                   min_guidance_scale, max_guidance_scale, fps, motion_bucket_id,
@@ -427,20 +431,20 @@ class StableVideoDiffusionPipeline:
         """Encode and denoise the clips of one part -> final latents."""
         dev = self.device
         b = image.shape[0]
-        with _Stage(trace, "cond_encode", dev):
-            states_cfg, img_lat_cfg = self.encode_conditioning(
-                image, ids, noise_aug_strength * image_noise)
+        states_cfg, img_lat_cfg = self.encode_conditioning(
+            image, ids, noise_aug_strength * image_noise, trace=trace)
         add_ids = common.get_add_time_ids(fps - 1, motion_bucket_id, noise_aug_strength,
                                           b, 2, dev)
         guidance = common.guidance_linspace(min_guidance_scale, max_guidance_scale,
                                             num_frames, b, dev)
-        with _Stage(trace, "denoise", dev):
-            if len(branches) == 2:  # the cfg axis: a branch a device (eager)
-                sched = make_svd_schedule(steps)
-                img_lat = img_lat_cfg[:, None].expand(-1, num_frames, -1, -1, -1)
-                x = latents * sched.init_noise_sigma
-                parts = cfg_parts(branches, b, dict(states=states_cfg, img_lat=img_lat,
-                                                    add_ids=add_ids))
+        if len(branches) == 2:  # the cfg axis: a branch a device (eager)
+            sched = make_svd_schedule(steps)
+            img_lat = img_lat_cfg[:, None].expand(-1, num_frames, -1, -1, -1)
+            x = latents * sched.init_noise_sigma
+            parts = cfg_parts(branches, b, dict(states=states_cfg, img_lat=img_lat,
+                                                add_ids=add_ids))
+            with profiling.span("denoise.eager", dev, trace=trace, key="denoise", steps=steps,
+                                batch=b, branches=len(branches)):
                 for i in range(steps):
                     preds = []
                     for pipe, rows, ctx in parts:
@@ -452,9 +456,8 @@ class StableVideoDiffusionPipeline:
                                                context_clips=ctx))
                     uncond, cond = (q.to(dev) for q in preds)
                     x = sched.step(uncond + guidance * (cond - uncond), i, x)
-                return x
-            table, sigma0 = denoise_table(steps, dev)
-            inputs = dict(states=states_cfg, img_lat=img_lat_cfg, add_ids=add_ids,
-                          guidance=guidance)
-            x = self._denoise_loop("denoise", latents, table, sigma0, inputs)
-        return x
+            return x
+        table, sigma0 = denoise_table(steps, dev)
+        inputs = dict(states=states_cfg, img_lat=img_lat_cfg, add_ids=add_ids,
+                      guidance=guidance)
+        return self._denoise_loop("denoise", latents, table, sigma0, inputs, trace=trace)

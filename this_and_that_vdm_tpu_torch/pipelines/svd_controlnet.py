@@ -11,7 +11,8 @@ CFG branch runs the ControlNet and the UNet on its own device; in guess mode
 only the conditional branch's device runs the ControlNet.  ``bake_params``
 and the step graphs: see ``pipelines/svd.py`` (the ``denoise_cn`` key adds
 ``ip2p`` and ``guess_mode``; the per-step ControlNet scale and the image
-guidance scale are columns of the step table).
+guidance scale are columns of the step table); so are the spans, with
+``pipeline.gesture_encode`` opened in ``encode_condition_img``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from typing import Optional
 import torch
 
 from ..schedulers import make_svd_schedule
+from ..utils import profiling
 from . import common
-from .svd import StableVideoDiffusionPipeline, _Stage, cfg_parts, denoise_table
+from .svd import StableVideoDiffusionPipeline, cfg_parts, denoise_table
 
 
 class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
@@ -33,24 +35,30 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
         super().__init__(unet, vae, image_encoder, text_encoder, bake_params)
         self.controlnet = controlnet
 
-    def encode_condition_img(self, condition_img):
+    def encode_condition_img(self, condition_img, trace: Optional[dict] = None):
         """[F, H, W, 3] (or [B, F, H, W, 3]) in [0, 1] -> VAE latents; the
         raster enters the VAE in [0, 1], as the reference feeds it."""
-        cond = torch.as_tensor(condition_img, device=self.device).float()
-        lat = self.vae.encode_mode(cond.reshape((-1,) + cond.shape[-3:])).float()
-        return lat.reshape(cond.shape[:-3] + lat.shape[1:])
+        with profiling.span("pipeline.gesture_encode", self.device, trace=trace):
+            cond = torch.as_tensor(condition_img, device=self.device).float()
+            lat = self.vae.encode_mode(cond.reshape((-1,) + cond.shape[-3:])).float()
+            return lat.reshape(cond.shape[:-3] + lat.shape[1:])
 
     def denoise(self, latents, states_cfg, img_lat_cfg, cond_latents, add_ids, guidance,
                 num_steps: int, cond_scale: float, ctrl_start: float, ctrl_end: float,
-                guess_mode: bool, ip2p: bool, image_guidance_scale: float, branches=None):
+                guess_mode: bool, ip2p: bool, image_guidance_scale: float, branches=None,
+                trace: Optional[dict] = None):
         """The Euler loop; ``branches``: the replicas of the CFG branches
         (one a branch) on a serving mesh, else None.  The single-device loop
         is ``_denoise_loop`` over ``denoise_step`` (baked: a replayed CUDA
-        graph); the CFG-split loop runs eagerly."""
+        graph); the CFG-split loop runs eagerly (``denoise.eager``)."""
         if branches is not None and len(branches) == (3 if ip2p else 2):
-            return self._denoise_split(branches, latents, states_cfg, img_lat_cfg, cond_latents,
-                                       add_ids, guidance, num_steps, cond_scale, ctrl_start,
-                                       ctrl_end, guess_mode, ip2p, image_guidance_scale)
+            with profiling.span("denoise.eager", latents.device, trace=trace, key="denoise",
+                                steps=num_steps, batch=latents.shape[0],
+                                branches=len(branches)):
+                return self._denoise_split(branches, latents, states_cfg, img_lat_cfg,
+                                           cond_latents, add_ids, guidance, num_steps,
+                                           cond_scale, ctrl_start, ctrl_end, guess_mode, ip2p,
+                                           image_guidance_scale)
         b = latents.shape[0]
         mult = 3 if ip2p else 2
         keep = [1.0 - float(i / num_steps < ctrl_start or (i + 1) / num_steps > ctrl_end)
@@ -66,7 +74,7 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
         inputs = dict(states=states_cfg, img_lat=img_lat_cfg, add_ids=add_ids,
                       guidance=guidance, cn_cond=cn_cond)
         return self._denoise_loop("denoise_cn", latents, table, sigma0, inputs, ip2p=ip2p,
-                                  guess_mode=guess_mode)
+                                  guess_mode=guess_mode, trace=trace)
 
     def _denoise_split(self, branches, latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
                        guidance, num_steps, cond_scale, ctrl_start, ctrl_end, guess_mode, ip2p,
@@ -126,29 +134,30 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
                  trace: Optional[dict] = None):
         """``image`` [B, H, W, 3] in [-1, 1]; ``condition_img`` the gesture
         raster [F, H, W, 3] in [0, 1]; ``prompt_ids`` [B, 77] int."""
-        dev = self.device
-        decode_chunk_size = decode_chunk_size or num_frames
-        image, image_noise, latents = self._draws(image, generator, image_noise, latents,
-                                                  num_frames)
-        ids = None if prompt_ids is None else torch.as_tensor(prompt_ids, device=dev)
-        cond = torch.as_tensor(condition_img, device=dev).float()
-        per_clip = dict(image=image, image_noise=image_noise, latents=latents)
-        shared = {}
-        if ids is not None:
-            per_clip["ids"] = ids
-        # per-clip gestures [B, F, H, W, 3] split with the clips; the shared
-        # [F, H, W, 3] raster goes to every part
-        (per_clip if cond.dim() == 5 else shared)["cond"] = cond
+        with profiling.span("pipeline.call", batch=len(image)):
+            dev = self.device
+            decode_chunk_size = decode_chunk_size or num_frames
+            image, image_noise, latents = self._draws(image, generator, image_noise, latents,
+                                                      num_frames)
+            ids = None if prompt_ids is None else torch.as_tensor(prompt_ids, device=dev)
+            cond = torch.as_tensor(condition_img, device=dev).float()
+            per_clip = dict(image=image, image_noise=image_noise, latents=latents)
+            shared = {}
+            if ids is not None:
+                per_clip["ids"] = ids
+            # per-clip gestures [B, F, H, W, 3] split with the clips; the shared
+            # [F, H, W, 3] raster goes to every part
+            (per_clip if cond.dim() == 5 else shared)["cond"] = cond
 
-        def run(pipe, branches, image, image_noise, latents, cond, ids=None, trace=None):
-            return pipe._generate(
-                branches, image, ids, image_noise, latents, cond, num_frames,
-                num_inference_steps, min_guidance_scale, max_guidance_scale, fps,
-                motion_bucket_id, noise_aug_strength, float(controlnet_conditioning_scale),
-                float(control_guidance_start), float(control_guidance_end), guess_mode,
-                use_instructpix2pix, float(image_guidance_scale), trace)
+            def run(pipe, branches, image, image_noise, latents, cond, ids=None, trace=None):
+                return pipe._generate(
+                    branches, image, ids, image_noise, latents, cond, num_frames,
+                    num_inference_steps, min_guidance_scale, max_guidance_scale, fps,
+                    motion_bucket_id, noise_aug_strength, float(controlnet_conditioning_scale),
+                    float(control_guidance_start), float(control_guidance_end), guess_mode,
+                    use_instructpix2pix, float(image_guidance_scale), trace)
 
-        return self._serve(run, per_clip, shared, output_type, decode_chunk_size, trace)
+            return self._serve(run, per_clip, shared, output_type, decode_chunk_size, trace)
 
     def _generate(self, branches, image, ids, image_noise, latents, cond, num_frames, steps,
                   min_guidance_scale, max_guidance_scale, fps, motion_bucket_id,
@@ -158,18 +167,14 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
         dev = self.device
         b = image.shape[0]
         mode = "ip2p" if ip2p else "standard"
-        with _Stage(trace, "cond_encode", dev):
-            states_cfg, img_lat_cfg = self.encode_conditioning(
-                image, ids, noise_aug_strength * image_noise, mode)
-        with _Stage(trace, "gesture_encode", dev):
-            cond_latents = self.encode_condition_img(cond)
+        states_cfg, img_lat_cfg = self.encode_conditioning(
+            image, ids, noise_aug_strength * image_noise, mode, trace=trace)
+        cond_latents = self.encode_condition_img(cond, trace=trace)
         mult = 3 if ip2p else 2
         add_ids = common.get_add_time_ids(fps - 1, motion_bucket_id, noise_aug_strength,
                                           b, mult, dev)
         guidance = common.guidance_linspace(min_guidance_scale, max_guidance_scale,
                                             num_frames, b, dev)
-        with _Stage(trace, "denoise", dev):
-            x = self.denoise(latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
-                             guidance, steps, cond_scale, ctrl_start, ctrl_end, guess_mode,
-                             ip2p, image_guidance_scale, branches)
-        return x
+        return self.denoise(latents, states_cfg, img_lat_cfg, cond_latents, add_ids,
+                            guidance, steps, cond_scale, ctrl_start, ctrl_end, guess_mode,
+                            ip2p, image_guidance_scale, branches, trace=trace)

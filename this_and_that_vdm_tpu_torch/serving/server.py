@@ -16,8 +16,20 @@ CUDA graph) pipeline serves concurrent requests:
   bit, and a batched one equals it up to float noise (the pipelines map
   temporal context per clip);
 * callers get ``concurrent.futures.Future`` objects: submit from any thread.
-  A result's future carries ``timing``: the request's queue wait and the
-  size of the batch that served it;
+  A result's future carries ``timing``: the request's queue wait, from its
+  submit to its batch's close on ``time.perf_counter`` (the stretch of its
+  ``server.queue`` span, which is on the wall clock), and the size of the
+  batch that served it (its ``server.call`` span's);
+* the worker's time is always inside one span of ``utils.profiling``
+  (recorded while a profiler runs or inside ``profiling.recording()``), each
+  starting where the last ended: ``server.wait`` (blocked on an empty
+  queue), ``server.hold`` (the first request in hand, waiting up to
+  ``max_delay_s`` for followers), ``server.call`` (one batch: ``call``,
+  ``requests``, ``batch``), and inside it ``server.prepare`` (generators,
+  draws, stacking, inputs to the device), the pipeline's ``pipeline.call``
+  and ``server.deliver`` (results to the host arrays, futures set);
+  ``server.queue`` covers a request from its submit to its call, on the
+  submitting thread, with its ``request`` and ``call`` ids;
 * on a serving mesh (``mesh=parallel.make_serving_mesh(devices, cfg=2)``)
   the pipeline is placed on it once: a batch's clips split over ``clip``,
   each clip's CFG branches over ``cfg``.
@@ -33,6 +45,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -42,7 +55,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 __all__ = ["VideoGenServer"]
+
+_request_ids = itertools.count(1)
+_call_ids = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -53,7 +71,10 @@ class _Request:
     seed: int
     sampling: Dict[str, Any]
     future: Future
-    t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+    id: int = dataclasses.field(default_factory=lambda: next(_request_ids))
+    t_submit_ns: int = dataclasses.field(default_factory=time.time_ns)  # the span's clock
+    t_submit: float = dataclasses.field(default_factory=time.perf_counter)  # queue_s's
+    thread: int = dataclasses.field(default_factory=threading.get_ident)
 
 
 class VideoGenServer:
@@ -80,7 +101,8 @@ class VideoGenServer:
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._closed = False
         self._state_lock = threading.Lock()  # submit/close check-then-act
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._t_free = self._t_closed = time.time_ns()  # the worker's timeline
+        self._worker = threading.Thread(target=self._run, daemon=True, name="VideoGenServer")
         self._worker.start()
 
     # ------------------------------------------------------------------ api
@@ -128,8 +150,13 @@ class VideoGenServer:
 
     def _take_batch(self):
         """Block for one request, then collect same-bucket followers for up
-        to ``max_delay_s`` (or until ``max_batch``)."""
+        to ``max_delay_s`` (or until ``max_batch``).  The wait starts where
+        the worker's last span ended (``_t_free``); the batch closes at
+        ``_t_closed``."""
+        on = profiling.active()  # kept if recording is on at either end
         req = self._queue.get()
+        t_got = self._t_closed = time.time_ns()
+        profiling.record("server.wait", self._t_free, t_got, keep=on)
         if req is None:
             # shutdown sentinel, but a mixed-bucket request re-queued by an
             # earlier round may sit BEHIND it: serve leftovers before exiting
@@ -159,6 +186,8 @@ class VideoGenServer:
             else:
                 self._queue.put(nxt)  # different call: next batch
                 break
+        self._t_closed, self._t_closed_pc = time.time_ns(), time.perf_counter()
+        profiling.record("server.hold", t_got, self._t_closed)
         return batch
 
     def _run(self):
@@ -177,31 +206,46 @@ class VideoGenServer:
                         r.future.set_exception(e)
 
     def _execute(self, batch):
+        call = profiling.span("server.call", start_ns=self._t_closed, call=next(_call_ids))
+        try:
+            with call:
+                self._call(batch, call, self._t_closed_pc)
+        finally:
+            self._t_free = call.end_ns
+
+    def _call(self, batch, call, t_start: float):
         # claim the futures: a request whose caller cancelled while queued is
         # dropped here; afterwards cancel() can no longer race set_result
         batch = [r for r in batch if r.future.set_running_or_notify_cancel()]
+        cid = call.attrs["call"]
+        call.attrs.update(requests=[r.id for r in batch], batch=len(batch))
         if not batch:
             return
-        t_start = time.perf_counter()
-        sampling = dict(batch[0].sampling)
-        num_frames = int(sampling.get("num_frames", 14))
-        h, w = batch[0].image.shape[:2]
-        dev = self.pipe.device
-        image_noise, latents = [], []
-        for r in batch:  # each request's own draws, in the pipeline's order
-            g = torch.Generator(device=dev).manual_seed(r.seed)
-            image_noise.append(torch.randn((1, h, w, 3), generator=g, device=dev))
-            latents.append(torch.randn((1, num_frames, h // 8, w // 8, 4), generator=g,
-                                       device=dev))
-        kwargs = dict(sampling, latents=torch.cat(latents), image_noise=torch.cat(image_noise))
-        if batch[0].prompt_ids is not None:
-            kwargs["prompt_ids"] = np.stack([r.prompt_ids for r in batch])
-        images = np.stack([r.image for r in batch])
-        if batch[0].condition is not None:
-            out = self.pipe(images, np.stack([r.condition for r in batch]), **kwargs)
-        else:
-            out = self.pipe(images, **kwargs)
-        out = np.asarray(out)
-        for i, r in enumerate(batch):
-            r.future.timing = dict(queue_s=t_start - r.t_submit, batch=len(batch))
-            r.future.set_result(out[i])
+        for r in batch:
+            profiling.record("server.queue", r.t_submit_ns, call.start_ns, thread=r.thread,
+                             request=r.id, call=cid)
+        with profiling.span("server.prepare", call=cid):
+            sampling = dict(batch[0].sampling)
+            num_frames = int(sampling.get("num_frames", 14))
+            h, w = batch[0].image.shape[:2]
+            dev = self.pipe.device
+            image_noise, latents = [], []
+            for r in batch:  # each request's own draws, in the pipeline's order
+                g = torch.Generator(device=dev).manual_seed(r.seed)
+                image_noise.append(torch.randn((1, h, w, 3), generator=g, device=dev))
+                latents.append(torch.randn((1, num_frames, h // 8, w // 8, 4), generator=g,
+                                           device=dev))
+            kwargs = dict(sampling, latents=torch.cat(latents),
+                          image_noise=torch.cat(image_noise))
+            if batch[0].prompt_ids is not None:
+                kwargs["prompt_ids"] = torch.as_tensor(
+                    np.stack([r.prompt_ids for r in batch]), device=dev)
+            args = [torch.as_tensor(np.stack([r.image for r in batch]), device=dev)]
+            if batch[0].condition is not None:
+                args.append(torch.as_tensor(np.stack([r.condition for r in batch]), device=dev))
+        out = self.pipe(*args, **kwargs)
+        with profiling.span("server.deliver", call=cid):
+            out = np.asarray(out)
+            for i, r in enumerate(batch):
+                r.future.timing = dict(queue_s=t_start - r.t_submit, batch=call.attrs["batch"])
+                r.future.set_result(out[i])
