@@ -26,7 +26,9 @@ Phases (any failure raises and exits nonzero):
                  one, and the least time the card could take (bound).  K1 and
                  K3 bf16 at every shape of the denoise step: K1 contiguous and
                  as the .chunk(3) views of a fused qkv product, K3 at every
-                 (R, C, N) of its LN -> projection sites; K1 and K3 fp32 at
+                 (R, C, N) of its LN -> projection sites and its GEGLU
+                 epilogue at every (R, C, I) of the feed-forwards (against
+                 the composition, K3 then chunk, GELU and product); K1 and K3 fp32 at
                  the shapes of both and at those of the batch-1 train
                  steps; K2 at every GroupNorm site of the denoise step,
                  labelled with its route (resident in shared memory or
@@ -35,8 +37,8 @@ Phases (any failure raises and exits nonzero):
                  GestureNet's 655 leaves in one call.  Each case also gets
                  its device time a call (torch.profiler over as many calls
                  as the events time) and its count of device activities a
-                 call.  Then the backward of K1-K3 against autograd of the
-                 plain versions
+                 call.  Then the backward of K1-K3 (and of the GEGLU
+                 epilogue in bf16) against autograd of the plain versions
   4. denoiser    one full-width ControlNet + UNet forward (CFG batch 2, 14
                  frames of 32x48 latents, bf16) with the kernels and through
                  the plain versions; relative L2 error held to a bound; then
@@ -96,8 +98,9 @@ Phases (any failure raises and exits nonzero):
                  resize_bicubic; subsampled in VL), gesture raster and
                  prompt ids; finite losses, positive gradient norms; the
                  frozen UNet bit-unchanged, the trained model moved; the
-                 render's 14 PNGs and GIF; K1-K4 on the train paths, K1-K3
-                 on the render.  Then cli.eval with LPIPS on the card (render
+                 render's 14 PNGs and GIF; K1-K4 on the train paths (K3's
+                 GEGLU epilogue on VGL's, through its bf16 frozen UNet, and
+                 not on VL's fp32 UNet), K1-K3 on the render.  Then cli.eval with LPIPS on the card (render
                  against itself: 0 and the gate passes; against phase 8's CLI
                  render: > 0; the card's LPIPS within 1e-4 of the CPU's),
                  cli.adam8bit_ab (300 steps, both curves falling, K4 once a
@@ -110,9 +113,11 @@ Phases (any failure raises and exits nonzero):
                  of synthetic data into a temporary output directory; the
                  last step runs under torch.profiler (device time by kernel;
                  K2's and K4's ms and launches beside their bounds for the
-                 step); the host ms of each optimizer update
+                 step); the host ms of each optimizer update; K1-K4 and
+                 K3's GEGLU epilogue (the frozen bf16 UNet) launched
   7. VL train    the same on config/train_image2video.yaml (the 1.525 B-param
-                 UNet trains in fp32), 3 steps, the last one profiled
+                 UNet trains in fp32, so no GEGLU epilogue), 3 steps, the
+                 last one profiled
  10. curation    (after phase 7) SAM ViT-H, YOLOv8n (one class) and RAFT-large
                  with seeded random weights, written as their published
                  formats and loaded through the native wrappers onto the card
@@ -249,11 +254,25 @@ KERNEL_INFO = {
                   "this_and_that_vdm_tpu/ops/groupnorm_pallas.py:43"),
     "ln_matmul": ("this_and_that_vdm_tpu_torch/csrc/ln_matmul.cu",
                   "this_and_that_vdm_tpu/ops/ln_matmul.py:74"),
+    "ln_matmul_geglu": ("this_and_that_vdm_tpu_torch/csrc/ln_matmul.cu",
+                        "this_and_that_vdm_tpu/models/layers.py:317"),
     "adam8bit": ("this_and_that_vdm_tpu_torch/csrc/adam8bit.cu",
                  "this_and_that_vdm_tpu/ops/adam8bit_pallas.py:53"),
 }
 
 INFERENCE_KERNELS = ("flash_attention", "groupnorm", "ln_matmul")  # K4 runs in training only
+# the bf16 denoise step also takes K3's GEGLU epilogue at every feed-forward
+DENOISER_KERNELS = INFERENCE_KERNELS + ("ln_matmul_geglu",)
+
+
+def train_launches_ok(mode, counts):
+    """Every kernel ran on a training path, K3's GEGLU epilogue on VGL's
+    alone: VGL's frozen UNet is bf16 and takes it (its backward recomputes
+    the composition); VL trains its UNet in fp32, which keeps the
+    feed-forward's composition."""
+    geglu = counts["ln_matmul_geglu"]
+    return (min(v for k, v in counts.items() if k != "ln_matmul_geglu") > 0
+            and (geglu > 0) == (mode == "vgl"))
 
 # Main-path shapes (the denoise step at CFG 2: 28 = 2 x 14 frames).  K1:
 # (shape, as .chunk(3) views of a fused qkv product); the first bf16 case is
@@ -277,6 +296,9 @@ K3_SHAPES = {torch.bfloat16: [(r, c, n, n == 8 * c) for r, c in _K3_ROWS
                              (2688, 1280, 10240, True)]
              + [(r, c, n, n == 8 * c) for r, c in _K3_TRAIN_ROWS for n in (c, 3 * c, 8 * c)]
              + [(336, 1280, 3840, False)]}
+# K3's GEGLU epilogue, (R, C, I) of the denoise step's feed-forwards (a [2I, C]
+# weight with bias to [R, I]); bf16 only
+K3_GEGLU_SHAPES = [(r, c, 4 * c) for r, c in _K3_ROWS]
 
 # K2 cases, every distinct GroupNorm site (shape, eps, SiLU) of the denoise
 # step at CFG 2 (bf16; rank 5 folds frames into the statistics): 152 calls
@@ -539,6 +561,27 @@ def kernel_cases():
                 library=lambda x=x, s=sl, b=bl, w=w, wb=wbl: tF.linear(
                     tF.layer_norm(x, (x.shape[-1],), s, b, 1e-5), w, wb),
                 library_note="F.layer_norm -> F.linear (two calls)"))
+    for r, c, i in K3_GEGLU_SHAPES:
+        x = _randn((r, c), torch.bfloat16, 7)
+        s, b = _randn((c,), torch.float32, 8, 0.1, 1.0), _randn((c,), torch.float32, 9, 0.1)
+        w = _randn((2 * i, c), torch.bfloat16, 10, c ** -0.5)
+        wb = _randn((2 * i,), torch.float32, 11, 0.1)
+        sl, bl, wbl = s.bfloat16(), b.bfloat16(), wb.bfloat16()
+
+        def library(x=x, s=sl, b=bl, w=w, wb=wbl):
+            h, gate = tF.linear(tF.layer_norm(x, (x.shape[-1],), s, b, 1e-5), w, wb).chunk(2, -1)
+            return h * tF.gelu(gate)
+
+        cases.append(dict(
+            kernel="ln_matmul_geglu", label=f"R={r} C={c} I={i} bf16",
+            device_key="ln_matmul bf16",
+            kern=lambda x=x, s=s, b=b, w=w, wb=wb: lm.ln_matmul_geglu(x, s, b, w, wb),
+            plain=lambda x=x, s=s, b=b, w=w, wb=wb: lm._reference_geglu(x, s, b, w, wb, 1e-5),
+            scale=None,
+            work=(2.0 * r * c * 2 * i, (r * c + 2 * i * c + r * i) * 2 + 8.0 * c + 8.0 * i,
+                  torch.bfloat16),
+            library=library,
+            library_note="F.layer_norm -> F.linear -> chunk -> F.gelu -> mul (four calls)"))
     return cases
 
 
@@ -740,7 +783,8 @@ def phase_kernels():
 
 def backward_cases():
     """(kernel, label, kernel call, plain call, inputs) at one training-path
-    shape each (batch 1 clip of 14 frames), bf16 and fp32."""
+    shape each (batch 1 clip of 14 frames), bf16 and fp32 (the GEGLU
+    epilogue bf16 alone)."""
     from this_and_that_vdm_tpu_torch.ops import flash_attention as fa
     from this_and_that_vdm_tpu_torch.ops import groupnorm as gn
     from this_and_that_vdm_tpu_torch.ops import ln_matmul as lm
@@ -765,6 +809,14 @@ def backward_cases():
              [_randn((21504, 320), dtype, 7), _randn((320,), f32, 8, 0.1, 1.0),
               _randn((320,), f32, 9, 0.1), _randn((960, 320), dtype, 10, 320 ** -0.5)]),
         ]
+    cases.append(  # the GEGLU epilogue, bf16 only (the frozen VGL UNet's feed-forward)
+        ("ln_matmul_geglu", "R=21504 C=320 I=1280 bf16",
+         lambda x, s, b, w, wb: lm.ln_matmul_geglu(x, s, b, w, wb),
+         lambda x, s, b, w, wb: lm._reference_geglu(x, s, b, w, wb, 1e-5),
+         [_randn((21504, 320), torch.bfloat16, 7), _randn((320,), torch.float32, 8, 0.1, 1.0),
+          _randn((320,), torch.float32, 9, 0.1),
+          _randn((2560, 320), torch.bfloat16, 10, 320 ** -0.5),
+          _randn((2560,), torch.float32, 11, 0.1)]))
     return cases
 
 
@@ -842,8 +894,12 @@ def plain_versions():
     def ln_plain(x, scale, bias, w, wb=None, eps=1e-5):
         return lm._reference(x, scale, bias, w, wb, eps)
 
+    def geglu_plain(x, scale, bias, w, wb=None, eps=1e-5):
+        return lm._reference_geglu(x, scale, bias, w, wb, eps)
+
     patches = [(fa, "flash_attention", fa._plain), (layers, "group_norm", gn._plain),
-               (layers, "ln_matmul", ln_plain), (transformer, "ln_matmul", ln_plain)]
+               (layers, "ln_matmul", ln_plain), (transformer, "ln_matmul", ln_plain),
+               (layers, "ln_matmul_geglu", geglu_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     try:
         for m, n, f in patches:
@@ -965,7 +1021,7 @@ def phase_denoiser(pipe):
         f"kernels {t_kern:.3f} s, plain {t_plain:.3f} s")
     if not torch.isfinite(got).all() or not rel_l2 < DENOISER_REL_L2_BOUND:
         raise RuntimeError(f"denoiser check failed: rel L2 {rel_l2}")
-    if min(counts[k] for k in INFERENCE_KERNELS) == 0:
+    if min(counts[k] for k in DENOISER_KERNELS) == 0:
         raise RuntimeError(f"denoiser forward skipped a kernel: {counts}")
 
     # one denoise step (ControlNet + UNet at CFG 2) under the profiler
@@ -1054,7 +1110,7 @@ def phase_slice(pipe, smi):
                 reserved=torch.cuda.max_memory_reserved())
     log(f"[slice] launches over both requests {counts}; peak memory "
         f"{peak['allocated'] / 2**30:.2f} GiB (reserved {peak['reserved'] / 2**30:.2f})  [{smi}]")
-    if min(counts[k] for k in INFERENCE_KERNELS) == 0:
+    if min(counts[k] for k in DENOISER_KERNELS) == 0:
         raise RuntimeError(f"the main path skipped a kernel: {counts}")
     return counts, stages, peak, outs
 
@@ -1252,7 +1308,7 @@ def phase_baked(pipe, smi, slice_outs, slice_stages, slice_peak, eager_step):
     if not torch.equal(got, want):
         raise RuntimeError("baked: replayed steps differ from eager steps")
     if any(graph.launches[k] != per_step_eager[k] or through_replays[k] != steps * per_step_eager[k]
-           or per_step_eager[k] == 0 for k in INFERENCE_KERNELS):
+           or per_step_eager[k] == 0 for k in DENOISER_KERNELS):
         raise RuntimeError(f"baked: launches a replayed step {graph.launches}, through "
                            f"{steps} replays {through_replays}, an eager step {per_step_eager}")
     if min(prof["baked"]["kernel_launches"][k] for k in
@@ -1816,7 +1872,7 @@ def phase_train(mode, config, steps, profile, smi, edits=None, args=("--syntheti
         raise RuntimeError(f"{tag}: metrics {rec['metrics']}")
     if not all(rec["checks"].values()):
         raise RuntimeError(f"{tag}: checks failed {rec['checks']}")
-    if min(counts.values()) == 0:
+    if not train_launches_ok(mode, counts):
         raise RuntimeError(f"{tag}: the training path skipped a kernel: {counts}")
     return dict(mode=mode, config=config, steps=steps, metrics=rec["metrics"],
                 step_s=step_s, timed_step_s=timed, profile=prof, peak_bytes=peak, tf32=tf32,
@@ -1965,7 +2021,7 @@ def mesh_train(smi, ref):
         raise RuntimeError(f"mesh train: {rep}")
     if not (params_equal and moments_equal):
         raise RuntimeError("mesh train: the checkpoint did not restore bit-equal")
-    if min(counts.values()) == 0:
+    if not train_launches_ok(mode, counts):
         raise RuntimeError(f"mesh train: the path skipped a kernel: {counts}")
     return rep, counts
 
@@ -2342,7 +2398,7 @@ def phase_weights_and_data(tree, expected, smi):
             f"{run['step_s'][0]:.4f} s, later steps {[round(t, 4) for t in run['step_s'][1:]]} "
             f"s; loader wait per step {[round(t, 4) for t in waits]} s; peak "
             f"{run['peak_bytes'] / 2**30:.2f} GiB; train launches {train_counts}  [{smi}]")
-        if min(train_counts.values()) == 0:
+        if not train_launches_ok(mode, train_counts):
             raise RuntimeError(f"weights+data {mode}: the train path skipped a kernel "
                                f"{train_counts}")
         if mode == "vgl":

@@ -10,6 +10,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from this_and_that_vdm_tpu_torch import ops
 from this_and_that_vdm_tpu_torch.ops import (_native, adam8bit, flash_attention, groupnorm,
@@ -345,21 +346,59 @@ def _cases():
          lambda: ln_matmul._reference(lx, ls, lb, lw, lwb, 1e-5)),
         (lambda: adam8bit.adam8bit_update(g, codes[0], ms, codes[1], ns, bc),
          lambda: adam8bit._plain(g, codes[0], ms, codes[1], ns, bc, 0.9, 0.999, 1e-8)),
+        (lambda: ln_matmul.ln_matmul_geglu(lx.reshape(3, 16, 64), ls, lb, lw, lwb),
+         lambda: ln_matmul._reference_geglu(lx, ls, lb, lw, lwb, 1e-5).reshape(3, 16, 48)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4),
-                         ids=["flash_attention", "groupnorm", "ln_matmul", "adam8bit"])
+@pytest.mark.parametrize("case", range(5), ids=["flash_attention", "groupnorm", "ln_matmul",
+                                                "adam8bit", "ln_matmul_geglu"])
 def test_cpu_tensor_takes_plain_version_and_launches_nothing(case):
     ops.reset_launch_counts()
     wrapper, plain = _cases()[case]
     torch.testing.assert_close(wrapper(), plain(), rtol=0, atol=0)
     assert ops.launch_counts() == {"flash_attention": 0, "groupnorm": 0, "ln_matmul": 0,
-                                   "adam8bit": 0}
+                                   "ln_matmul_geglu": 0, "adam8bit": 0}
     assert _native.LIB.lib is None
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "groupnorm", "ln_matmul", "adam8bit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_ln", [True, False], ids=["ln", "no_ln"])
+def test_feedforward_on_cpu_is_the_composition_bit_for_bit(dtype, with_ln):
+    """On the CPU (and in fp32 or without a LayerNorm anywhere) the
+    feed-forward keeps its composition: LN -> projection, chunk, exact GELU,
+    product, each rounding to the compute dtype; ``ln_matmul_geglu``'s plain
+    version is that composition too."""
+    from this_and_that_vdm_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    ff, ln = layers.FeedForward(64), layers.LayerNorm(64)
+    with torch.no_grad():
+        for p in ln.parameters():
+            p.normal_(1.0 if p is ln.weight else 0.0, 0.1)
+    layers.cast_compute_dtype(ff, dtype)
+    x = torch.randn(2, 24, 64).to(dtype)
+    proj = ff.net[0].proj
+    with torch.no_grad():
+        if with_ln:
+            y = ln_matmul._reference(x.reshape(-1, 64), ln.weight, ln.bias, proj.weight,
+                                     proj.bias, ln.eps).reshape(2, 24, 512)
+        else:
+            y = F.linear(x, proj.weight, proj.bias)
+        h, gate = y.chunk(2, dim=-1)
+        want = ff.net[2](h * F.gelu(gate))
+        ops.reset_launch_counts()
+        got = ff(x, ln if with_ln else None)
+        assert torch.equal(got, want) and got.dtype == dtype
+        if with_ln:
+            fused = ln_matmul.ln_matmul_geglu(x, ln.weight, ln.bias, proj.weight, proj.bias,
+                                              ln.eps)
+            assert torch.equal(ff.net[2](fused), want)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "groupnorm", "ln_matmul", "adam8bit",
+                                    "ln_matmul_geglu"])
 def test_non_cpu_non_cuda_tensor_raises(kernel):
     """A wrapper takes its plain version only on the CPU; any other device
     that is not CUDA is refused, never silently computed."""
@@ -372,6 +411,9 @@ def test_non_cpu_non_cuda_tensor_raises(kernel):
         elif kernel == "ln_matmul":
             ln_matmul.ln_matmul(m.reshape(128, 64), torch.ones(64), torch.zeros(64),
                                 torch.zeros(8, 64))
+        elif kernel == "ln_matmul_geglu":
+            ln_matmul.ln_matmul_geglu(m.reshape(128, 64), torch.ones(64), torch.zeros(64),
+                                      torch.zeros(16, 64))
         else:
             q = torch.empty((32, 256), device="meta", dtype=torch.uint8)
             s = torch.empty((32,), device="meta")

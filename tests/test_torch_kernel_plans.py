@@ -23,6 +23,13 @@ from this_and_that_vdm_tpu_torch.ops import adam8bit, flash_attention, groupnorm
 # cross-attention q), 3C (the fused qkv) and 8C (the GEGLU input).
 _ROWS = {320: (43008,), 640: (10752,), 1280: (2688, 672)}
 MAIN_PATH = [(r, c, n) for c, rows in _ROWS.items() for r in rows for n in (c, 3 * c, 8 * c)]
+# the GEGLU epilogue at the feed-forwards' sites (out [R, 4C] from w [8C, C]),
+# at CFG 2 and at four clips' rows, and a ragged R and I
+GEGLU_SITES = [(r * k, c, 4 * c) for c, rows in _ROWS.items() for r in rows for k in (1, 4)] \
+    + [(1000, 320, 1280), (77, 64, 40)]
+_PLAN_CASES = ([pytest.param(r, c, n, False, id=f"{r}-{c}-{n}") for r, c, n in MAIN_PATH]
+               + [pytest.param(r, c, n, True, id=f"{r}-{c}-{n}-geglu")
+                  for r, c, n in GEGLU_SITES])
 
 
 def _block_ranges(p):
@@ -30,20 +37,47 @@ def _block_ranges(p):
     return [(b * p.tiles // p.grid, (b + 1) * p.tiles // p.grid) for b in range(p.grid)]
 
 
-@pytest.mark.parametrize("r,c,n", MAIN_PATH)
-def test_ln_matmul_plan_fits_and_covers(r, c, n):
-    p = ln_matmul.plan(r, c, n)
+def _geglu_stage_rows(p, nt, i):
+    """The weight row behind each row of column tile ``nt``'s stage under
+    the GEGLU epilogue, as the kernel's producer loads it: each 128-row
+    part is a 64-row box of h (rows from nt * obn) and one of the gate
+    (I rows further on)."""
+    return [hg * i + nt * p.obn + 64 * q + k
+            for q in range(p.bn // 128) for hg in (0, 1) for k in range(64)]
+
+
+@pytest.mark.parametrize("r,c,n,geglu", _PLAN_CASES)
+def test_ln_matmul_plan_fits_and_covers(r, c, n, geglu):
+    p = ln_matmul.plan(r, c, n, geglu=geglu)
     assert p.smem <= ln_matmul.SMEM_LIMIT == 232448
     assert p.stages >= 2 and p.wm in (1, 2) and p.bm == 64 * p.wm
+    assert p.obn == (p.bn // 2 if geglu else p.bn)
     # rows past R and columns past N are masked, never left out
-    assert -(-r // p.bm) * p.bm >= r and p.tiles_n * p.bn >= n
+    assert -(-r // p.bm) * p.bm >= r and p.tiles_n * p.obn >= n > (p.tiles_n - 1) * p.obn
     assert p.tiles == -(-r // p.bm) * p.tiles_n and p.grid == min(p.tiles, 132)
     ranges = _block_ranges(p)
     assert ranges[0][0] == 0 and ranges[-1][1] == p.tiles
     assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
     # the layout the kernel allocates: slack, normalised rows, ring, barriers
+    # (the GEGLU epilogue's the same as the plain one's at the same C)
     kb = -(-c // 64)
     assert p.smem == 1024 + kb * p.bm * 128 + p.stages * p.bn * p.kw * 2 + 8 * (2 * p.stages + 2)
+    if geglu:
+        # the plain plan of the [2I, C] projection, but for the stored width
+        assert p._replace(obn=p.bn) == ln_matmul.plan(r, c, 2 * n)
+        # every output column is stored once, from accumulator column a of
+        # part q (h, a < 64) and its gate at a + 64: w rows o and I + o
+        seen = np.zeros(n, np.int64)
+        for nt in range(p.tiles_n):
+            rows = _geglu_stage_rows(p, nt, n)
+            assert len(rows) == p.bn
+            for q in range(p.bn // 128):
+                for a in range(64):
+                    o = nt * p.obn + 64 * q + a
+                    assert rows[128 * q + a] == o and rows[128 * q + 64 + a] == n + o
+                    if o < n:  # the kernel's store mask
+                        seen[o] += 1
+        assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("r,c,n", [(77, 64, 40), (3000, 320, 960), (384, 1280, 10240),

@@ -212,6 +212,78 @@ def test_ln_matmul_fp32_train_shapes(dev, r, c, n, bias):
     assert _rel(got, want) < BOUND[torch.float32]
 
 
+def _geglu_fp32(x, s, b, w, wb, eps=1e-5):
+    """The GEGLU epilogue's arithmetic in fp32 from the same bf16 normalised
+    rows and weights: fp32 product and biases, exact GELU, fp32 product, no
+    rounding."""
+    y = ln_matmul.layer_norm_fp32(x, s, b, eps).float() @ w.float().T + wb.float()
+    h, gate = y.chunk(2, dim=-1)
+    return h * torch.nn.functional.gelu(gate)
+
+
+# (R, C, I) of the feed-forwards' GEGLU sites of the VGL denoise step at CFG
+# 2 (levels 1-3, the level-4 mid block), at four clips' rows, a ragged R
+# and a ragged R and I
+_GEGLU_SHAPES = [(43008, 320, 1280), (10752, 640, 2560), (2688, 1280, 5120), (672, 1280, 5120),
+                 (172032, 320, 1280), (43008, 640, 2560), (10752, 1280, 5120),
+                 (1000, 320, 1280), (77, 64, 40)]
+
+
+@pytest.mark.parametrize("r,c,i", _GEGLU_SHAPES)
+def test_ln_matmul_geglu_kernel(dev, r, c, i):
+    """One launch, counted under both of K3's names, against the plain
+    composition; against the same arithmetic in fp32 its error is no larger
+    than that of the unfused composition (K3's bf16 projection, then torch's
+    GELU and product, each rounding to bf16), at the largest and on mean."""
+    x = _randn((r, c), torch.bfloat16, dev, 0)
+    s, b = 1 + 0.1 * _randn((c,), torch.float32, dev, 1), 0.1 * _randn((c,), torch.float32, dev, 2)
+    w = _randn((2 * i, c), torch.bfloat16, dev, 3) / c ** 0.5
+    wb = 0.1 * _randn((2 * i,), torch.float32, dev, 4)
+    ops.reset_launch_counts()
+    got = ln_matmul.ln_matmul_geglu(x, s, b, w, wb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ln_matmul"] == ops.launch_counts()["ln_matmul_geglu"] == 1
+    assert got.shape == (r, i) and got.dtype == torch.bfloat16
+    assert _rel(got, ln_matmul._reference_geglu(x, s, b, w, wb, 1e-5)) < BOUND[torch.bfloat16]
+    h, gate = ln_matmul.ln_matmul(x, s, b, w, wb).chunk(2, dim=-1)
+    unfused = h * torch.nn.functional.gelu(gate)
+    exact = _geglu_fp32(x, s, b, w, wb)
+    err, err_unfused = (got.float() - exact).abs(), (unfused.float() - exact).abs()
+    assert err.max() <= err_unfused.max() and err.mean() <= err_unfused.mean()
+
+
+def test_vgl_denoise_step_counts_geglu_launches(dev):
+    """One eager VGL denoise step at full width (the GestureNet, then the
+    UNet with its residuals; CFG 2, 14 frames of 32 x 48 latents, bf16):
+    161 launches of K3, of which 69 with the GEGLU epilogue (3 feed-forwards
+    in each of the 16 + 7 transformer models); the UNet alone, as the VL
+    step runs it, 112 and 48."""
+    from this_and_that_vdm_tpu_torch.models import cast_compute_dtype, init_weights
+    from this_and_that_vdm_tpu_torch.weights import loader
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    unet, cn = (cast_compute_dtype(init_weights(loader.build_module(name, "full", dev), gen),
+                                   torch.bfloat16).eval().requires_grad_(False)
+                for name in ("unet", "gesturenet"))
+    x = _randn((2, 14, 32, 48, 8), torch.float32, dev, 0)
+    cond = _randn((2, 14, 32, 48, 4), torch.float32, dev, 1)
+    states = _randn((2, 78, 1024), torch.float32, dev, 2)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+    t = torch.tensor(1.6, device=dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        res, mid = cn(x, t, states, ids, cond, conditioning_scale=1.0)
+        gesture = ops.launch_counts()
+        out = unet(x, t, states, ids, down_block_additional_residuals=res,
+                   mid_block_additional_residual=mid)
+        torch.cuda.synchronize()
+    step = ops.launch_counts()
+    assert torch.isfinite(out.float()).all()
+    assert (step["ln_matmul"], step["ln_matmul_geglu"]) == (161, 69)
+    assert (step["ln_matmul"] - gesture["ln_matmul"],
+            step["ln_matmul_geglu"] - gesture["ln_matmul_geglu"]) == (112, 48)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 128, 2, 80), device=dev)
     with pytest.raises(ValueError):
@@ -232,6 +304,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         x = torch.zeros((16, 2048), device=dev, dtype=torch.bfloat16)
         ln_matmul.ln_matmul(x, torch.ones(2048), torch.zeros(2048),
                             torch.zeros((8, 2048), device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):  # the GEGLU epilogue is bf16's alone
+        ln_matmul.ln_matmul_geglu(torch.zeros((16, 64), device=dev), torch.ones(64),
+                                  torch.zeros(64), torch.zeros((16, 64), device=dev))
+    with pytest.raises(ValueError, match="2I"):  # an odd number of weight rows
+        x = torch.zeros((16, 64), device=dev, dtype=torch.bfloat16)
+        ln_matmul.ln_matmul_geglu(x, torch.ones(64), torch.zeros(64),
+                                  torch.zeros((17, 64), device=dev, dtype=torch.bfloat16))
 
 
 def _k4_inputs(dev, nb, seed, valid=None):
@@ -346,11 +425,22 @@ def _backward_cases(dev, dtype):
          lambda x, s, b, w, wb: ln_matmul._reference(x, s, b, w, wb, 1e-5),
          [t((3072, 320), 6), f32((320,), 7, 0.1, 1.0), f32((320,), 8, 0.1),
           t((960, 320), 9, 320 ** -0.5), f32((960,), 10, 0.1)]),
+        ("ln_matmul_geglu", lambda x, s, b, w, wb: ln_matmul.ln_matmul_geglu(x, s, b, w, wb),
+         lambda x, s, b, w, wb: ln_matmul._reference_geglu(x, s, b, w, wb, 1e-5),
+         [t((3072, 320), 6), f32((320,), 7, 0.1, 1.0), f32((320,), 8, 0.1),
+          t((2560, 320), 9, 320 ** -0.5), f32((2560,), 10, 0.1)]),
     ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(3), ids=["flash_attention", "groupnorm", "ln_matmul"])
+# (dtype, case): every kernel in both dtypes but the GEGLU epilogue, bf16's alone
+_BACKWARD = [pytest.param(dtype, case, id=f"{name}-dtype{d}")
+             for case, name in enumerate(["flash_attention", "groupnorm", "ln_matmul",
+                                          "ln_matmul_geglu"])
+             for d, dtype in enumerate([torch.float32, torch.bfloat16])
+             if name != "ln_matmul_geglu" or dtype == torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype,case", _BACKWARD)
 def test_kernel_backward_matches_plain_autograd(dev, dtype, case):
     name, kern, plain, inputs = _backward_cases(dev, dtype)[case]
     xs = [x.detach().requires_grad_(True) for x in inputs]

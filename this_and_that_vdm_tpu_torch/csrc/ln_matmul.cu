@@ -27,9 +27,23 @@
 // L2).  The two compute warpgroups take alternate tiles, in turns (named
 // barriers), so that one's epilogue overlaps the other's products; each
 // runs wgmma m64n128k16 with both operands in shared memory into two fp32
-// accumulators.  The epilogue adds the fp32 bias, rounds once to bf16 and
-// stores 16 bytes a lane after a quad shuffle.  The normalised tensor never
-// reaches device memory.
+// accumulators.  The epilogue (template parameter EPI) adds the fp32 bias,
+// rounds once to bf16 and stores 16 bytes a lane after a quad shuffle.  The
+// normalised tensor never reaches device memory.
+//
+// EPI_GEGLU, the feed-forward's GEGLU (ops/ln_matmul.ln_matmul_geglu): the
+// weight is nn.Linear's [2N, C], the N rows of h and then the N of the gate,
+// and out is [R, N] = h * gelu(gate).  Each 128-row part of a weight stage
+// holds 64 rows of h and the same 64 rows of the gate, two TMA boxes of the
+// one tensor map (rows n0 and N + n0), so a lane's accumulator columns
+// 8j + 2t (+1) are h for j < 8 and their gate at j + 8, in the same thread:
+// the epilogue adds both biases, takes the exact (erf) GELU of a part's 32
+// gates a lane in one pass, multiplies in fp32, rounds once, and stores
+// [BM, BN / 2].  The rows, the ring and the warpgroups' turns are the plain
+// epilogue's, and the plain instances compile as before; the gate and the
+// [R, 2N] projection never reach device memory.  The erf (about 25
+// instructions, a chain of dependent FMAs) is what the epilogue adds: at
+// C = 320 it outlasts the other warpgroup's products, at C = 1280 it hides.
 //
 // Tiles (chosen in Python by ops/ln_matmul.plan, a function of R, C, N):
 //   WM = 2: BM = 128 rows, BN = 128 -- while the normalised [128, C] fits
@@ -188,31 +202,71 @@ size_t ln_smem_bytes(int C, int stages) {
          8 * (2 * stages + 2);
 }
 
-// the fp32 bias at columns c + 8j, c + 8j + 1 (zero past N or without one)
+// The epilogues: + bias to [R, N]; or the GEGLU of the two halves of a
+// [2N, C] weight (h, then the gate) to [R, N]
+enum : int { EPI_BIAS = 0, EPI_GEGLU = 1 };
+
+// the fp32 bias of accumulator block j (columns c + 8j, c + 8j + 1; zero
+// past N or without one); EPI_GEGLU: blocks 0-7 are h's columns c + 8j and
+// blocks 8-15 the gate's of the same columns, N further on in wb
+template <int EPI>
 __device__ __forceinline__ void load_bias(float2 (&bias)[16], const float* __restrict__ wb,
                                           int c, int N) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
-    bias[j] = (wb != nullptr && c + 8 * j < N)
-                  ? __ldg(reinterpret_cast<const float2*>(wb + c + 8 * j))
-                  : make_float2(0.f, 0.f);
+  for (int j = 0; j < 16; ++j) {
+    if constexpr (EPI == EPI_GEGLU)
+      bias[j] = (wb != nullptr && c + 8 * (j & 7) < N)
+                    ? __ldg(reinterpret_cast<const float2*>((j < 8 ? wb : wb + N) + c + 8 * (j & 7)))
+                    : make_float2(0.f, 0.f);
+    else
+      bias[j] = (wb != nullptr && c + 8 * j < N)
+                    ? __ldg(reinterpret_cast<const float2*>(wb + c + 8 * j))
+                    : make_float2(0.f, 0.f);
+  }
 }
 
-// + bias (fp32), one rounding, 16 bytes a lane: one 64 x 128 part, rows
-// row0 (+8), columns col0 + 8j + 2t (+1)
+// exact GELU in fp32, as torch's: x / 2 * (1 + erf(x / sqrt(2)))
+__device__ __forceinline__ float gelu_erf(float x) {
+  return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
+}
+
+// EPI_GEGLU, before a part is stored: its gate blocks 8-15 become
+// gelu(gate + bias) in place, all 32 of a lane's in one pass (independent:
+// more of them in flight than when each pair waits for its store)
+__device__ __forceinline__ void gelu_gates(float (&acc)[64], const float2 (&bias)[16]) {
+#pragma unroll
+  for (int j = 8; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] = gelu_erf(acc[4 * j + e] + (e & 1 ? bias[j].y : bias[j].x));
+}
+
+// one output pair of accumulator block jb, row half hh, in fp32 -> bf16x2:
+// + bias, and under EPI_GEGLU times its gate's GELU (block jb + 8, from
+// gelu_gates)
+template <int EPI>
+__device__ __forceinline__ uint32_t epilogue_pair(const float (&acc)[64],
+                                                  const float2 (&bias)[16], int jb, int hh) {
+  const float y0 = acc[4 * jb + 2 * hh] + bias[jb].x, y1 = acc[4 * jb + 2 * hh + 1] + bias[jb].y;
+  if constexpr (EPI == EPI_GEGLU)
+    return hop::pack_bf16(y0 * acc[4 * (jb + 8) + 2 * hh], y1 * acc[4 * (jb + 8) + 2 * hh + 1]);
+  else
+    return hop::pack_bf16(y0, y1);
+}
+
+// the epilogue, one rounding, 16 bytes a lane: one 64 x 128 accumulator
+// part, rows row0 (+8), output columns col0 + 8j + 2t (+1) of its 16 blocks
+// j (EPI_GEGLU: of its 8 blocks of h)
+template <int EPI>
 __device__ __forceinline__ void store_part(const float (&acc)[64], const float2 (&bias)[16],
                                            bf16* __restrict__ out, int row0, int col0, int t,
                                            int R, int N) {
 #pragma unroll
-  for (int gr = 0; gr < 4; ++gr)
+  for (int gr = 0; gr < (EPI == EPI_GEGLU ? 2 : 4); ++gr)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       uint32_t w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int jb = 4 * gr + i;
-        w[i] = hop::pack_bf16(acc[4 * jb + 2 * hh] + bias[jb].x, acc[4 * jb + 2 * hh + 1] + bias[jb].y);
-      }
+      for (int i = 0; i < 4; ++i) w[i] = epilogue_pair<EPI>(acc, bias, 4 * gr + i, hh);
       const uint4 u = hop::quad_transpose(w, t);
       const int row = row0 + 8 * hh, col = col0 + 8 * (4 * gr + t);
       if (row < R && col < N) *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = u;
@@ -220,8 +274,9 @@ __device__ __forceinline__ void store_part(const float (&acc)[64], const float2 
 }
 
 // tiles: (row block, column tile) in row-major order; a block takes one
-// contiguous range of them and its warpgroups take turns, tile by tile
-template <int WM>
+// contiguous range of them and its warpgroups take turns, tile by tile.  N
+// is out's width; a tile stores OBN of its columns, a part PART_N.
+template <int WM, int EPI>
 __global__ void __launch_bounds__(THREADS_BF16, 1)
     ln_matmul_bf16(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -229,6 +284,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
                    float eps, int stages, int tiles_n, int tiles) {
   using T = LnTiles<WM>;
   constexpr int BM = T::BM, BN = T::BN, KW = T::KW;
+  constexpr int OBN = EPI == EPI_GEGLU ? BN / 2 : BN, PART_N = EPI == EPI_GEGLU ? 64 : 128;
   const int KB = (C + 63) / 64, KC = (C + KW - 1) / KW;  // 64-column blocks, weight chunks
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sA = hop::align1024(smem_raw);
@@ -264,7 +320,15 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
         const int s = it % stages, u = it / stages;
         if (u > 0) hop::mbar_wait(&empty[s], (u - 1) & 1);
         hop::mbar_expect_tx(&full[s], T::STAGE);
-        hop::tma_load_2d(ring + s * T::STAGE, &mw, &full[s], kc * KW, nt * BN);
+        if constexpr (EPI == EPI_GEGLU) {
+          // each 128-row part: 64 rows of h, then the same 64 of the gate
+          for (int q = 0; q < BN / 128; ++q)
+            for (int hg = 0; hg < 2; ++hg)
+              hop::tma_load_2d(ring + s * T::STAGE + (128 * q + 64 * hg) * KW * 2, &mw, &full[s],
+                               kc * KW, hg * N + nt * OBN + 64 * q);
+        } else {
+          hop::tma_load_2d(ring + s * T::STAGE, &mw, &full[s], kc * KW, nt * BN);
+        }
         ++it;
       };
       for (int tt = t0; tt < t1; ++tt) {
@@ -352,39 +416,47 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
 
     // epilogue (overlaps the other warpgroup's products): the bias of this
     // lane's columns of a part is loaded at once, then the part is stored
-    const int row0 = rb * BM + wl * 16 + g, col0 = nt * BN;
+    const int row0 = rb * BM + wl * 16 + g, col0 = nt * OBN;
     float2 bias[16];
-    load_bias(bias, wb, col0 + 2 * t, N);
-    store_part(acc0, bias, out, row0, col0, t, R, N);
-    if (WM == 1) load_bias(bias, wb, col0 + 128 + 2 * t, N);
-    store_part(acc1, bias, out, row0 + (WM == 2 ? 64 : 0), col0 + (WM == 2 ? 0 : 128), t, R, N);
+    load_bias<EPI>(bias, wb, col0 + 2 * t, N);
+    if constexpr (EPI == EPI_GEGLU) gelu_gates(acc0, bias);
+    store_part<EPI>(acc0, bias, out, row0, col0, t, R, N);
+    if (WM == 1) load_bias<EPI>(bias, wb, col0 + PART_N + 2 * t, N);
+    if constexpr (EPI == EPI_GEGLU) gelu_gates(acc1, bias);
+    store_part<EPI>(acc1, bias, out, row0 + (WM == 2 ? 64 : 0), col0 + (WM == 2 ? 0 : PART_N), t,
+                    R, N);
   }
   }
 }
 
-template <int WM>
+// N: out's width; the weight has N rows, or 2N under EPI_GEGLU (loaded in
+// boxes of 64 rows, two to a 128-row part)
+template <int WM, int EPI>
 int launch_bf16(const void* x, const void* gamma, const void* beta, const void* w,
                 const void* wb, void* out, int R, int C, int N, float eps, int stages, int grid,
                 int smem, cudaStream_t st) {
   using T = LnTiles<WM>;
+  constexpr bool GEGLU = EPI == EPI_GEGLU;
   if (stages < 2 || (size_t)smem < ln_smem_bytes<WM>(C, stages) || smem > kSmemLimit ||
       C > 32 * 8 * UNITS)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mx, mw;
-  const cuuint64_t xdims[2] = {(cuuint64_t)C, (cuuint64_t)R}, wdims[2] = {(cuuint64_t)C, (cuuint64_t)N};
+  const cuuint64_t xdims[2] = {(cuuint64_t)C, (cuuint64_t)R};
+  const cuuint64_t wdims[2] = {(cuuint64_t)C, (cuuint64_t)(GEGLU ? 2 * N : N)};
   const cuuint64_t stride[1] = {(cuuint64_t)C * 2};
   const cuuint32_t xbox[2] = {64, (cuuint32_t)T::BM};
-  const cuuint32_t wbox[2] = {(cuuint32_t)T::KW, (cuuint32_t)T::BN};
+  const cuuint32_t wbox[2] = {(cuuint32_t)T::KW, (cuuint32_t)(GEGLU ? 64 : T::BN)};
   int err = hop::make_map(&mx, x, 2, xdims, stride, xbox);
   if (!err) err = hop::make_map(&mw, w, 2, wdims, stride, wbox, T::KW == 32);
   if (err) return err;
   static ttv::PerDevice allowed;
-  const cudaError_t e = ttv::allow_smem(reinterpret_cast<const void*>(ln_matmul_bf16<WM>),
+  const cudaError_t e = ttv::allow_smem(reinterpret_cast<const void*>(ln_matmul_bf16<WM, EPI>),
                                         kSmemLimit, allowed);
   if (e != cudaSuccess) return (int)e;
-  const int tiles_n = (N + T::BN - 1) / T::BN;
+  const int obn = GEGLU ? T::BN / 2 : T::BN;
+  const int tiles_n = (N + obn - 1) / obn;
   const int tiles = (R + T::BM - 1) / T::BM * tiles_n;
-  ln_matmul_bf16<WM><<<grid, THREADS_BF16, smem, st>>>(
+  ln_matmul_bf16<WM, EPI><<<grid, THREADS_BF16, smem, st>>>(
       mx, mw, static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float*>(wb), static_cast<bf16*>(out), R, C, N, eps, stages, tiles_n,
       tiles);
@@ -637,19 +709,24 @@ int launch_f32(const void* x, const void* gamma, const void* beta, const void* w
 }  // namespace
 
 // bf16: wm (1 or 2), stages, grid and smem come from ops/ln_matmul.plan;
-// fp32: wm is 1 when the rows stream (F32Cfg<true>), else 0; grid and smem
-// come from ops/ln_matmul.plan_f32 (stages is ignored); scratch, [R, C]
-// fp32, only when the rows stream.  wb may be null.
+// geglu: w is [2N, C] and out [R, N] = h * gelu(gate) (EPI_GEGLU); fp32:
+// wm is 1 when the rows stream (F32Cfg<true>), else 0; grid and smem come
+// from ops/ln_matmul.plan_f32 (stages is ignored); scratch, [R, C] fp32,
+// only when the rows stream; no geglu.  wb may be null.
 extern "C" int ttv_ln_matmul(const void* x, const void* gamma, const void* beta,
                              const void* w, const void* wb, void* out, void* scratch, int R,
-                             int C, int N, float eps, int is_bf16, int wm, int stages, int grid,
-                             int smem, void* stream) {
+                             int C, int N, float eps, int is_bf16, int geglu, int wm, int stages,
+                             int grid, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (wm == 2) return launch_bf16<2>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
-    if (wm == 1) return launch_bf16<1>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st);
+#define TTV_LN_BF16(WM, EPI) \
+  launch_bf16<WM, EPI>(x, gamma, beta, w, wb, out, R, C, N, eps, stages, grid, smem, st)
+    if (wm == 2) return geglu ? TTV_LN_BF16(2, EPI_GEGLU) : TTV_LN_BF16(2, EPI_BIAS);
+    if (wm == 1) return geglu ? TTV_LN_BF16(1, EPI_GEGLU) : TTV_LN_BF16(1, EPI_BIAS);
+#undef TTV_LN_BF16
     return (int)cudaErrorInvalidValue;
   }
+  if (geglu) return (int)cudaErrorInvalidValue;
   if (wm == 0)
     return launch_f32<F32Cfg<false>>(x, gamma, beta, w, wb, out, scratch, R, C, N, eps, grid, smem, st);
   if (wm == 1)

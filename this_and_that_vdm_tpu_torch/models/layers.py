@@ -14,7 +14,8 @@ parameters fp32 and casts at each matmul.
 The LayerNorm -> projection sites keep the structure of the JAX
 ``fused_ln()`` branch everywhere: the LayerNorm's parameters are handed to
 the projection, which runs through ``ops.ln_matmul`` (K3) with a combined
-``[3C, C]`` qkv weight for self-attention.
+``[3C, C]`` qkv weight for self-attention; in bf16 on the card the
+feed-forward's GEGLU runs in K3's epilogue (``ops.ln_matmul_geglu``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
 from ..ops.groupnorm import group_norm
-from ..ops.ln_matmul import layer_norm_fp32, ln_matmul
+from ..ops.ln_matmul import layer_norm_fp32, ln_matmul, ln_matmul_geglu
 
 
 def sinusoidal_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -129,7 +130,9 @@ class _GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward (HF keys ``net.0.proj``, ``net.2``); ``ln`` is
-    fused into the first projection through ``ops.ln_matmul``."""
+    fused into the first projection through ``ops.ln_matmul``, and in bf16
+    on the card the GEGLU too (``ops.ln_matmul_geglu``): the route follows
+    the input's dtype and device alone."""
 
     def __init__(self, dim: int, mult: int = 4, dim_out: Optional[int] = None):
         super().__init__()
@@ -139,6 +142,11 @@ class FeedForward(nn.Module):
 
     def forward(self, x, ln: Optional[LayerNorm] = None):
         proj = self.net[0].proj
+        if ln is not None and x.is_cuda and x.dtype == torch.bfloat16:
+            # K3's GEGLU epilogue: h * gelu(gate) from the fp32 accumulators,
+            # one rounding; the [.., 2I] projection is never written
+            h = ln_matmul_geglu(x, ln.weight, ln.bias, proj.weight, proj.bias, eps=ln.eps)
+            return self.net[2](h)
         if ln is not None:
             h = ln_matmul(x, ln.weight, ln.bias, proj.weight, proj.bias, eps=ln.eps)
         else:

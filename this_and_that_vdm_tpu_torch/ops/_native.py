@@ -32,9 +32,9 @@ _SIGNATURES = {
     # x, gamma, beta, y, part, rows, S, C, G, eps, silu, rows_per_block, kmax, grid,
     # resident, smem, is_bf16, stream
     "ttv_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, gamma, beta, w, wb, out, scratch, R, C, N, eps, is_bf16, wm (fp32: the
-    # configuration), stages, grid, smem, stream
-    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    # x, gamma, beta, w, wb, out, scratch, R, C, N, eps, is_bf16, geglu, wm (fp32:
+    # the configuration), stages, grid, smem, stream
+    "ttv_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
     # leaf table, n_leaves, total_blocks, mq2, ms2, nq2, ns2, hyper (17 floats),
     # max_grid, stream
     "ttv_adam8bit_multi": [_P, _I, _I, _P, _P, _P, _P, ctypes.POINTER(_F), _I, _P],
