@@ -4,7 +4,8 @@ CUDA graphs, so a baked pipeline runs its one step function eagerly):
 
 * the table-driven Euler step against the JAX scheduler's ``step`` over 25
   steps (rtol 1e-6) and against the port's own ``step`` bit for bit;
-* the baked VGL (standard; guess + ip2p gated) and VL pipelines against the
+* (in ``test_torch_bake_one_clip.py`` and ``test_torch_bake_two_clips.py``)
+  the baked VGL (standard; guess + ip2p gated) and VL pipelines against the
   JAX pipelines with ``bake_params=True``, at 1 and 2 clips (PARITY.md's
   2e-4), no graph captured;
 * the port of ``test_bake_params_matches_default_and_not_stale`` and
@@ -18,52 +19,24 @@ CUDA graphs, so a baked pipeline runs its one step function eagerly):
 
 import argparse
 import copy
-import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from this_and_that_vdm_tpu.pipelines import StableVideoDiffusionPipeline as JaxVL
 from this_and_that_vdm_tpu.schedulers import make_svd_schedule as jax_schedule
 
 from this_and_that_vdm_tpu_torch import app, parallel
 from this_and_that_vdm_tpu_torch.cli import inference, rehearsal
-from this_and_that_vdm_tpu_torch.pipelines import (
-    StableVideoDiffusionControlNetPipeline, StableVideoDiffusionPipeline)
 from this_and_that_vdm_tpu_torch.pipelines import svd as psvd
 from this_and_that_vdm_tpu_torch.schedulers import (make_svd_schedule, table_scale_model_input,
                                                     table_step)
 from this_and_that_vdm_tpu_torch.training import train_loop, validation
 
-from test_torch_pipeline import B, FR, H, IDS, KW, W, pipes  # noqa: F401  (fixture)
+from test_torch_pipeline import FR, H, W, pipes  # noqa: F401  (fixture)
+from torch_bake_parity import _inputs, _vgl
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
-
-VGL_MODES = [
-    dict(controlnet_conditioning_scale=0.8),
-    dict(guess_mode=True, use_instructpix2pix=True, image_guidance_scale=2.0,
-         control_guidance_end=0.6),
-]
-
-
-def _vgl(t, bake=True):
-    return StableVideoDiffusionControlNetPipeline(
-        t["unet"], t["vae"], t["image_encoder"], t["controlnet"], t["text_encoder"],
-        bake_params=bake)
-
-
-def _vl(t, bake=True):
-    return StableVideoDiffusionPipeline(t["unet"], t["vae"], t["image_encoder"],
-                                        t["text_encoder"], bake_params=bake)
-
-
-def _inputs(seed, clips):
-    rng = np.random.RandomState(seed)
-    image = np.clip(rng.randn(clips, H, W, 3) * 0.3, -1, 1).astype(np.float32)
-    cond_img = rng.rand(FR, H, W, 3).astype(np.float32)
-    noise = rng.randn(clips, FR, H // 8, W // 8, 4).astype(np.float32)
-    return image, cond_img, noise, dict(KW, prompt_ids=np.repeat(IDS, clips, axis=0))
 
 
 # ------------------------------------------------------------- the scheduler
@@ -97,40 +70,6 @@ def test_denoise_table_columns():
     np.testing.assert_array_equal(table[:, psvd.CN_SCALE].numpy(),
                                   np.float32([0.8, 0.8, 0, 0, 0]))
     assert (table[:, psvd.IMG_SCALE] == 2.0).all()
-
-
-# ------------------------------------------------- baked pipelines against JAX
-
-@pytest.fixture(scope="module")
-def baked_jax(pipes):  # noqa: F811
-    """One baked JAX pipeline for the module: its compiled programs are
-    cached across the tests."""
-    return dataclasses.replace(pipes[0], bake_params=True)
-
-
-@pytest.mark.parametrize("clips", [1, 2])
-@pytest.mark.parametrize("mode", VGL_MODES, ids=["standard", "guess_ip2p_gated"])
-def test_baked_vgl_matches_baked_jax(pipes, baked_jax, mode, clips):  # noqa: F811
-    t = pipes[1]
-    image, cond_img, noise, kw = _inputs(1, clips)
-    want = baked_jax(image, cond_img, latents=jnp.asarray(noise), **mode, **kw)
-    pipe = _vgl(t)
-    got = pipe(image, cond_img, latents=noise, **mode, **kw)
-    assert got.shape == (clips, FR, H, W, 3) == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-4)
-    # the CPU runs the step eagerly: no graph, nothing cached
-    assert pipe.captures == 0 and pipe.step_graphs() == []
-
-
-@pytest.mark.parametrize("clips", [1, 2])
-def test_baked_vl_matches_baked_jax(pipes, baked_jax, clips):  # noqa: F811
-    t = pipes[1]
-    image, _, noise, kw = _inputs(0, clips)
-    want = JaxVL.__call__(baked_jax, image, latents=jnp.asarray(noise), **kw)
-    pipe = _vl(t)
-    got = pipe(image, latents=noise, **kw)
-    np.testing.assert_allclose(got, want, atol=2e-4)
-    assert pipe.captures == 0 and pipe.step_graphs() == []
 
 
 # ------------------------------------------------------------- the bake key

@@ -18,6 +18,15 @@ from this_and_that_vdm_tpu_torch.ops import (_native, adam8bit, flash_attention,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+def _run(script):
+    """``script`` in a fresh interpreter on one torch thread (beside the
+    other test workers a multi-threaded one waits on the cores)."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import this_and_that_vdm_tpu_torch as pkg
@@ -33,9 +42,7 @@ print(len(names), bad, _native.LIB.lib, host_native.LIB.lib)
 
 
 def test_importing_every_module_leaves_jax_out():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
-                         cwd=REPO, env=env, timeout=300)
+    res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     out = res.stdout.strip()
     # no jax/flax/JAX package; neither the kernel nor the host library built
@@ -59,9 +66,7 @@ print(len(parallel.__all__), bad, sorted(n for n in ("make_mesh", "host_replicat
 def test_parallel_imports_no_jax_and_has_the_jax_packages_names():
     """``parallel`` alone pulls in no jax, flax or JAX-package module, and
     has a counterpart of each of the eleven names of the JAX package's."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=300)
+    res = _run(_IMPORT_PARALLEL)
     assert res.returncode == 0, res.stderr
     n, rest = res.stdout.strip().split(" ", 1)
     assert int(n) >= 11 and rest == "[] []", res.stdout
@@ -176,9 +181,7 @@ print("ok", bad)
 
 
 def test_entry_points_work_without_optional_packages():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _WITHOUT_OPTIONAL], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=300)
+    res = _run(_WITHOUT_OPTIONAL)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok []", res.stdout
 
@@ -243,9 +246,7 @@ print("ok", bad)
 
 
 def test_curation_path_works_without_optional_packages():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _CURATION_WITHOUT_OPTIONAL], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=300)
+    res = _run(_CURATION_WITHOUT_OPTIONAL)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok []", res.stdout
 
@@ -320,9 +321,7 @@ print("ok", bad)
 
 
 def test_tracking_flow_and_trainer_work_without_optional_packages():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _TRACKING_WITHOUT_OPTIONAL], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=300)
+    res = _run(_TRACKING_WITHOUT_OPTIONAL)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok []", res.stdout
 

@@ -22,6 +22,7 @@ from this_and_that_vdm_tpu.pipelines import common as jcommon
 from this_and_that_vdm_tpu_torch.models import clip, controlnet, unet, vae
 from this_and_that_vdm_tpu_torch.pipelines import common
 from this_and_that_vdm_tpu_torch.weights.convert import load_flax_params
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 B, F, H, W = 2, 3, 8, 16  # CFG pair, 3 frames, 8x16 latent grid
 CTX = 48

@@ -23,6 +23,7 @@ from this_and_that_vdm_tpu_torch.pipelines import (
     StableVideoDiffusionControlNetPipeline, StableVideoDiffusionPipeline)
 
 from test_torch_models import jax_params, port
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 B, FR, H, W = 1, 3, 64, 128
 CTX = 48

@@ -19,8 +19,6 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from this_and_that_vdm_tpu.models import controlnet as jcn
-from this_and_that_vdm_tpu.models import unet as junet
 from this_and_that_vdm_tpu.models.layers import _fused_group_norm as jax_fused_gn
 from this_and_that_vdm_tpu.ops import flash_attention as jfa
 from this_and_that_vdm_tpu.ops import ln_matmul as jlm
@@ -32,11 +30,11 @@ from this_and_that_vdm_tpu_torch.training import checkpoint as ckpt
 from this_and_that_vdm_tpu_torch.training import optimizers, train_loop, trainer
 from this_and_that_vdm_tpu_torch.weights.convert import controlnet_from_unet, flax_params_to_torch
 
-from test_torch_models import jax_params, port
+from test_torch_models import port
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
+from torch_train_harness import B, CTX, F, nano_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-B, F, H, W = 2, 3, 64, 128
-CTX = 48
 
 
 def _rel(got, want):
@@ -136,12 +134,7 @@ def test_remat_matches_no_remat(which):
 
 
 def test_controlnet_from_unet_matches_jax():
-    lat = np.zeros((B, F, H // 8, W // 8, 8), np.float32)
-    ctx, ids = np.zeros((B, 5, CTX), np.float32), np.zeros((B, 3), np.float32)
-    up = jax_params(junet.UNetSpatioTemporalConditionModel(junet.UNetConfig.nano()), lat, 0.5,
-                    ctx, ids, seed=30)
-    cp = jax_params(jcn.ControlNetModel(jcn.ControlNetConfig.nano()), lat, 0.5, ctx, ids,
-                    lat[..., :4], seed=31)
+    _, _, up, cp = nano_params(30, 31)
     want = flax_params_to_torch(controlnet_params_from_unet(up, cp))
     tu = port(unet.UNetSpatioTemporalConditionModel(unet.UNetConfig.nano()), up)
     tc = port(controlnet.ControlNetModel(controlnet.ControlNetConfig.nano()), cp)

@@ -6,11 +6,12 @@ parameters, batches and random draws (set-up and tolerances in
 import pytest
 
 import torch_train_harness as h
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
 def trained():
-    return h.trained("vl")
+    return h.trained("vl", h.build_towers())
 
 
 def test_vl_step_one_matches_jax(trained):

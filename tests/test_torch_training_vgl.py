@@ -11,11 +11,17 @@ import pytest
 import torch
 
 import torch_train_harness as h
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
-def trained():
-    return h.trained("vgl")
+def towers():
+    return h.build_towers()
+
+
+@pytest.fixture(scope="module")
+def trained(towers):
+    return h.trained("vgl", towers)
 
 
 def test_vgl_step_one_matches_jax(trained):
@@ -36,11 +42,11 @@ def test_vgl_adam8bit_state_converter(trained):
     h.check_state_converter(trained[0])
 
 
-def test_vgl_masked_conditioning_step_matches_jax():
+def test_vgl_masked_conditioning_step_matches_jax(towers):
     """Both masks on (the UNet reuses the GestureNet's masked latents), the
     keep mask drawn from the same key: step-1 loss and grad_norm, and the
     mask reaches the loss."""
-    setup = h.Setup(h.build_towers(), "vgl", mask_unet_vae=True, mask_controlnet_vae=True,
+    setup = h.Setup(towers, "vgl", mask_unet_vae=True, mask_controlnet_vae=True,
                     mask_proportion=0.3)
     b, key = h.batch(7, True), jax.random.PRNGKey(7)
     d = h.draws(key, mask=True)

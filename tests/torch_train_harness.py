@@ -4,8 +4,21 @@ Nano size: 2-block UNet / GestureNet, tiny VAE and CLIP towers, B=2 clips of
 3 frames at 64x128, fp32 frozen towers, 8-bit AdamW, no warmup, lr 1e-5.
 Both packages load one parameter tree (the JAX modules' init with seeded
 numpy values, carried by ``weights/convert``) and take the random draws of
-the same JAX key.  One JAX ``value_and_grad`` compile per configuration; the
-JAX optimizer update runs eagerly (its jit compiles for over a minute).
+the same JAX key.  A test module builds the towers once (``build_towers``)
+and shares them across its setups.
+
+How each side runs, the cheapest way that runs the same code (times on the
+CPU beside a running six-worker test suite):
+
+* the JAX loss: ``jax.jit(jax.value_and_grad(loss_fn))``, one trace and
+  compile per configuration (~40 s); run eagerly its first call takes
+  ~100 s, every primitive compiling on its own;
+* the JAX optimizer update: eager (~25 s the first call, ~4 s after),
+  against ~80 s to compile it under ``jit`` and ~30 s under
+  ``jax.disable_jit()``;
+* the port's step: on one torch thread (``torch_one_thread``, autouse in
+  the test modules); multi-threaded beside the other workers a step took
+  ~30x as long.
 
 Tolerances: step-1 loss rtol 1e-5 and grad_norm rtol 1e-4; per-leaf gradient
 relative L2 <= 1e-4 (leaves whose gradient is mathematically zero, a bias
@@ -74,24 +87,30 @@ def batch(seed, gesture):
     return b
 
 
+def nano_params(unet_seed, controlnet_seed):
+    """The nano JAX UNet and GestureNet with their seeded parameter trees."""
+    lat = np.zeros((B, F, H // 8, W // 8, 8), np.float32)
+    ctx, ids = np.zeros((B, 5, CTX), np.float32), np.zeros((B, 3), np.float32)
+    ju = junet.UNetSpatioTemporalConditionModel(junet.UNetConfig.nano())
+    jc = jcn.ControlNetModel(jcn.ControlNetConfig.nano())
+    return (ju, jc, jax_params(ju, lat, 0.5, ctx, ids, seed=unet_seed),
+            jax_params(jc, lat, 0.5, ctx, ids, lat[..., :4], seed=controlnet_seed))
+
+
 def build_towers():
     """The JAX modules, their seeded parameter trees, the ported frozen towers."""
     lat = np.zeros((B, F, H // 8, W // 8, 8), np.float32)
-    ctx = np.zeros((B, 5, CTX), np.float32)
-    ids = np.zeros((B, 3), np.float32)
     jm = dict(vae=jvae.AutoencoderKLTemporalDecoder(jvae.VAEConfig.tiny()),
               image_encoder=jclip.CLIPVisionModelWithProjection(jclip.CLIPVisionConfig(**VIS)),
               text_encoder=jclip.CLIPTextModel(jclip.CLIPTextConfig(**TXT)))
-    ju = junet.UNetSpatioTemporalConditionModel(junet.UNetConfig.nano())
-    jc = jcn.ControlNetModel(jcn.ControlNetConfig.nano())
+    ju, jc, unet_params, controlnet_params = nano_params(23, 24)
     params = dict(
         vae=jax_params(jm["vae"], np.zeros((1, H, W, 3), np.float32), lat[:1, :2, ..., :4],
                        seed=20),
         image_encoder=jax_params(jm["image_encoder"], np.zeros((1, 224, 224, 3), np.float32),
                                  seed=21),
         text_encoder=jax_params(jm["text_encoder"], np.zeros((1, 16), np.int32), seed=22),
-        unet=jax_params(ju, lat, 0.5, ctx, ids, seed=23),
-        controlnet=jax_params(jc, lat, 0.5, ctx, ids, lat[..., :4], seed=24))
+        unet=unet_params, controlnet=controlnet_params)
     tm = dict(vae=port(vae.AutoencoderKLTemporalDecoder(vae.VAEConfig.tiny()), params["vae"]),
               image_encoder=port(clip.CLIPVisionModelWithProjection(clip.CLIPVisionConfig(**VIS)),
                                  params["image_encoder"]),
@@ -173,9 +192,9 @@ def run(setup, steps):
     return out, first
 
 
-def trained(mode):
-    """A 3-step run of ``mode`` on fresh towers, with the UNet's state before it."""
-    setup = Setup(build_towers(), mode)
+def trained(mode, towers):
+    """A 3-step run of ``mode``, with the UNet's state before it."""
+    setup = Setup(towers, mode)
     unet_before = {k: v.clone() for k, v in setup.tunet.state_dict().items()}
     out, first = run(setup, 3)
     return setup, out, first, unet_before
